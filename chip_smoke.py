@@ -11,7 +11,9 @@ Phases, each printing its elapsed seconds as it ends:
      SchurOps in float32 on the card;
   4. kernel checks: every kernel on the inputs the main path gives it
      at the C5 shape (f32) and on a small network (f64), against its
-     plain PyTorch version, with times, bounds and a library yardstick;
+     plain PyTorch version, with its device time (a burst of launches),
+     the time of one call with the wrapper's host work, the host
+     microseconds per call, bounds and a library yardstick;
   5. a small network solved on the card (kernels) and on the CPU
      (plain versions) must agree;
   6. the main path: fused_gna to the noise floor (bench.py's gate),
@@ -64,25 +66,6 @@ def net(kw, seed_perturb):
     s = make_ring_network(**kw)
     perturb(s, eo_pos=0.02, eo_ang=0.004, op_pos=0.02, seed=seed_perturb)
     return s, build_serial(s)
-
-
-def time_ms(fn, reps=20):
-    """Median milliseconds of `fn` over `reps` runs, CUDA events."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def capture_inputs(ops):
@@ -161,6 +144,7 @@ def check_kernels(ops, dtype_name, timed):
         fused_bilinear, fused_bilinear_plain, pair_bucket_acc,
         pair_bucket_acc_plain,
     )
+    from dbat_tpu_torch.timing import call_ms, device_ms
 
     tol = REL_TOL[dtype_name]
     seen = capture_inputs(ops)
@@ -189,15 +173,19 @@ def check_kernels(ops, dtype_name, timed):
                 / max(float(p.abs().max()), 1e-300)
             b = nbytes(A, B, tab) + p.numel() * p.element_size()
             ops_n = (2 * fb.g - 1) * A.shape[0] * fb.d_out
-            row.update(ms=time_ms(kern), plain_ms=time_ms(plain),
-                       library_ms=time_ms(lib), library_err=lib_err,
+            ms, host_us = device_ms(kern)
+            row.update(ms=ms, call_ms=call_ms(kern), host_us=host_us,
+                       plain_ms=device_ms(plain)[0],
+                       library_ms=device_ms(lib)[0], library_err=lib_err,
                        bytes=b, flops=ops_n)
         rows.append(row)
         log(f"  fused_bilinear{nm[3:]:>6} {dtype_name} rows={A.shape[0]} "
             f"d_a={A.shape[1]} d_b={B.shape[1]} d_out={fb.d_out} g={fb.g}: "
             f"max abs err {err:.3e}, rel {rel:.3e} (tol rel {tol:g})"
-            + (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-               f"ms, bmm {row['library_ms']:.4f} ms (bmm rel err "
+            + (f" | kernel {row['ms']:.4f} ms device, {row['call_ms']:.4f} "
+               f"ms one call (wrapper included), host {row['host_us']:.1f} "
+               f"us/call; plain {row['plain_ms']:.4f} ms, bmm "
+               f"{row['library_ms']:.4f} ms (bmm rel err "
                f"{row['library_err']:.2e})" if timed else ""))
         if not rel <= tol:
             raise RuntimeError(
@@ -209,16 +197,19 @@ def check_kernels(ops, dtype_name, timed):
     args = (Yf, plan.i1, plan.i2, plan.row_ptr, tab, fb.d_out, fb.g, plan.cap)
 
     def kern():
-        return pair_bucket_acc(*args)
+        return pair_bucket_acc(*args, plan.chunk_ptr)
 
-    def plain():
+    def plain():  # the same function; the partition only schedules warps
         return pair_bucket_acc_plain(*args)
 
     k, p = kern(), plain()
+    if not torch.equal(k, kern()):
+        raise RuntimeError("pair_bucket_acc: two launches differ")
     torch.cuda.synchronize()
     err = float((k - p).abs().max())
     rel = err / max(float(p.abs().max()), 1e-300)
     row = {"kernel": "pair_bucket_acc", "call": "_pair_acc",
+           "chunks": plan.n_chunks,
            "pairs": plan.n_pairs, "padded_pairs": plan.n_rows * plan.cap,
            "bucket_rows": plan.n_rows, "camera_pairs": plan.n_campair,
            "d_y": Yf.shape[1], "d_out": fb.d_out, "g": fb.g,
@@ -226,15 +217,25 @@ def check_kernels(ops, dtype_name, timed):
     if timed:
         b = nbytes(Yf, plan.i1, plan.i2, plan.row_ptr, tab) \
             + p.numel() * p.element_size()
-        row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+        ms, host_us = device_ms(kern)
+        row.update(ms=ms, call_ms=call_ms(kern), host_us=host_us,
+                   plain_ms=device_ms(plain, n=3, bursts=3)[0],
                    library_ms=None, bytes=b,
                    flops=2 * fb.g * plan.n_pairs * fb.d_out)
     rows.append(row)
+    # Logical count, not measured traffic: the kernel skips pad pairs and
+    # copies each row's 16-byte-aligned window.
+    gathered = 2 * plan.n_pairs * Yf.shape[1] * Yf.element_size()
     log(f"  pair_bucket_acc {dtype_name} pairs={plan.n_pairs} rows="
-        f"{plan.n_rows} camera pairs={plan.n_campair} d_out={fb.d_out}: "
+        f"{plan.n_rows} camera pairs={plan.n_campair} chunks="
+        f"{plan.n_chunks} d_out={fb.d_out}, bitwise repeatable: "
         f"max abs err {err:.3e}, rel {rel:.3e} (tol rel {tol:g})"
-        + (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
-           if timed else ""))
+        + (f" | kernel {row['ms']:.4f} ms device, {row['call_ms']:.4f} ms "
+           f"one call (wrapper included), host {row['host_us']:.1f} us/call; "
+           f"plain {row['plain_ms']:.4f} ms" if timed else "")
+        + f"; Y rows gathered (logical count, 2 per pair): "
+        f"{gathered / 1e6:.1f} MB "
+        f"(Y is {Yf.numel() * Yf.element_size() / 1e6:.1f} MB)")
     if not rel <= tol:
         raise RuntimeError(f"pair_bucket_acc: rel err {rel:.3e} > {tol}")
     return rows
@@ -285,17 +286,25 @@ def main():
     dof = ops.n_res - ops.n_x
     floor = float(np.sqrt(dof))
     rows_per_cp = np.diff(ops._pair_plan.row_ptr.cpu().numpy())
+    chunk_rows = np.diff(ops._pair_plan.row_ptr.cpu().numpy()[
+        ops._pair_plan.chunk_ptr.cpu().numpy()])
     log(f"C5 shape: n_img={s.n_img} n_pt={s.n_op} n_obs={ops.n_obs} "
         f"n_x={ops.n_x} n_c={ops.n_c} nb={ops.n_cb} pairs={ops.n_pairs} "
         f"camera pairs={ops.n_campair} bucket rows="
         f"{ops._pair_plan.n_rows} (per camera pair: median "
         f"{np.median(rows_per_cp):g}, max {rows_per_cp.max()}) pad ratio "
-        f"{ops._pair_plan.pad_ratio:.4f}")
+        f"{ops._pair_plan.pad_ratio:.4f}; kernel B chunks "
+        f"{len(chunk_rows)} of {chunk_rows.mean():.1f} bucket rows on "
+        f"average, at most {chunk_rows.max()}")
     phase_done("setup", t, card)
 
     # 4. Kernel checks ------------------------------------------------------
     t = time.perf_counter()
-    log(f"kernel checks on {card}:")
+    log(f"kernel checks on {card} (device ms: CUDA events around bursts "
+        f"of back-to-back launches queued behind a sleep, per launch, median "
+        f"of bursts; operands warm in L2 as on the main path, where the "
+        f"stage before has just written them; one call: events around a "
+        f"single call on an idle device, wrapper included):")
     rows = check_kernels(ops, "float32", timed=True)
     s_small, spec_small = net(SMALL, 6)
     ops_small = SchurOps(s_small, spec_small, dtype=torch.float64,
@@ -387,6 +396,8 @@ def main():
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
+            "call_ms": sum(r["call_ms"] for r in rs),
+            "host_us": sum(r["host_us"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(b for b, _ in b_ms),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -395,9 +406,10 @@ def main():
     log(f"kernel times against their bounds on {card}:")
     for r in rows:
         b, by = bound_ms(r)
-        log(f"  {r['kernel']}/{r['call']}: {r['ms']:.4f} ms vs bound "
-            f"{b:.4f} ms ({by}; {r['bytes'] / 1e6:.1f} MB, "
-            f"{r['flops'] / 1e9:.3f} GFLOP)")
+        log(f"  {r['kernel']}/{r['call']}: {r['ms']:.4f} ms device "
+            f"({r['call_ms']:.4f} ms one call, host {r['host_us']:.1f} "
+            f"us/call) vs bound {b:.4f} ms ({by}; {r['bytes'] / 1e6:.1f} "
+            f"MB, {r['flops'] / 1e9:.3f} GFLOP): {r['ms'] / b:.2f}x")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -34,13 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-#: C signature of every launcher: name -> argument types (restype int,
-#: the launch's cudaError_t).
+#: C signature of every exported function: name -> argument types
+#: (restype int: a launcher's cudaError_t, or the occupancy query's warps).
 SIGNATURES = {
     **{f"dbat_fused_bilinear_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
        for t in ("f32", "f64")},
-    **{f"dbat_pair_bucket_acc_{t}": [_P, _I, _I, _P, _P, _P, _I, _P, _P,
-                                     _I, _I, _I, _P]
+    **{f"dbat_pair_bucket_acc_{t}": [_P, _I, _I, _P, _P, _P, _P, _I, _P,
+                                     _I, _P]
+       for t in ("f32", "f64")},
+    **{f"dbat_pair_bucket_resident_warps_{t}": [_I, _I]
        for t in ("f32", "f64")},
 }
 

@@ -114,7 +114,7 @@ class SchurOps(BundleOps):
         self.n_campair = len(ukey)
         self._pair_plan = PairBucketPlan(
             i1, i2, cp_of_pair.reshape(-1), self.n_campair, self.n_obs,
-            device=dev) if self.n_pairs else None
+            device=dev, nb=nb, dtype=self.dtype) if self.n_pairs else None
 
         d_y = nb * 3
         self._fb_u = FlatBilinear(2 * nb, 2 * nb, ata_terms(2, nb), nb * nb)
