@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-One `nvcc` call compiles every source under csrc/ for sm_90a (Hopper)
-into one shared library with a plain C interface; `solve/kernels.py`
-binds it with ctypes.  No PyTorch header is included anywhere, so the
-build takes seconds rather than the minutes a torch extension costs.
+Each source under csrc/ is compiled for sm_90a (Hopper) into a shared
+library of its own with a plain C interface, which `solve/kernels.py`
+binds with ctypes.  The `nvcc` processes, one per source, are started
+together, so the build takes as long as its slowest source.  No
+PyTorch header is included anywhere, so the build takes seconds rather
+than the minutes a torch extension costs.
 
-The library lands in `_build/` next to this file (listed in
+The libraries land in `_build/` next to this file (listed in
 .gitignore), named by a hash of the sources and flags: a changed
 source builds anew, an unchanged one is loaded as it is.  The build
 runs at first use, never at import.
@@ -25,6 +27,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -49,8 +52,8 @@ SIGNATURES = {
 
 @dataclass
 class BuildInfo:
-    path: Path
-    compiled: bool  # False when an existing library was loaded
+    paths: list  # one library per source
+    compiled: bool  # False when existing libraries were loaded
     seconds: float
     log: str  # nvcc's output (ptxas register/spill report)
 
@@ -80,46 +83,57 @@ def _digest() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the kernels unless a library for these sources exists."""
-    out = BUILD_DIR / f"libdbat_kernels_{_digest()}.so"
-    if out.exists():
-        return BuildInfo(out, False, 0.0, "")
+    """Compile the kernels unless libraries for these sources exist."""
+    digest = _digest()
+    outs = [BUILD_DIR / f"libdbat_{Path(name).stem}_{digest}.so"
+            for name in SOURCES]
+    if all(out.exists() for out in outs):
+        return BuildInfo(outs, False, 0.0, "")
     BUILD_DIR.mkdir(exist_ok=True)
-    # Compile to a private name, then rename: a concurrent build never
+    nvcc = find_nvcc()
+    # Compile to private names, then rename: a concurrent build never
     # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC_DIR / s) for s in SOURCES]]
+    tmps = []
+    for _ in SOURCES:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        tmps.append(tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, tmp in zip(SOURCES, tmps)]
+    log = "".join(proc.communicate()[0] for proc in procs)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, True, seconds, log)
+    if any(proc.returncode for proc in procs):
+        for tmp in tmps:
+            os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    for tmp, out in zip(tmps, outs):
+        os.replace(tmp, out)
+    return BuildInfo(outs, True, seconds, log)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once per process,
-    with every launcher's argument types declared."""
-    lib = _loaded.get("lib")
-    if lib is None:
+def load() -> SimpleNamespace:
+    """The kernels' exported functions as attributes, built if needed
+    and loaded once per process, with every argument type declared."""
+    fns = _loaded.get("fns")
+    if fns is None:
         info = build()
-        lib = ctypes.CDLL(str(info.path))
+        libs = [ctypes.CDLL(str(path)) for path in info.paths]
+        fns = SimpleNamespace()
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = next(getattr(lib, name) for lib in libs
+                      if hasattr(lib, name))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded["lib"] = lib
-        _loaded["info"] = info
-    return lib
+            setattr(fns, name, fn)
+        _loaded.update(fns=fns, libs=libs, info=info)
+    return fns
 
 
 def build_info() -> BuildInfo:
-    """How the loaded library was obtained (loads it if needed)."""
+    """How the loaded libraries were obtained (loads them if needed)."""
     load()
     return _loaded["info"]
 
@@ -133,5 +147,6 @@ def ptxas_report(log: str) -> list:
 
 if __name__ == "__main__":
     info = build_info()
-    print(f"{info.path} compiled={info.compiled} {info.seconds:.2f} s")
+    print(" ".join(map(str, info.paths)),
+          f"compiled={info.compiled} {info.seconds:.2f} s")
     print("\n".join(ptxas_report(info.log)))

@@ -34,6 +34,14 @@ C5_RING = dict(n_img=239, n_pt=17993, rays_per_pt=(3, 40),
                est_io_cols=("cc", "px", "py", "K1", "K2", "K3", "P1", "P2"),
                seed=17)
 
+#: bench.py's roma watchdog network: romabundledemo's shape (353
+#: images, 26,321 points, 90,561 measurements, sparse 2..8 rays, mean
+#: 3.44; fixed IO, so a 6-wide camera block), perturbed with
+#: perturb(eo_pos=0.02, eo_ang=0.004, op_pos=0.02, seed=24).
+ROMA_RING = dict(n_img=353, n_pt=26321, rays_per_pt=(2, 8),
+                 n_obs_target=90561, n_ctrl=8, noise_px=0.1, ip_std_px=0.1,
+                 seed=23)
+
 #: IO column names in serialization order (buildparamtypes.m:11-20).
 IO_COLS = {"cc": 0, "px": 1, "py": 2, "as": 3, "sk": 4,
            "K1": 5, "K2": 6, "K3": 7, "P1": 8, "P2": 9}

@@ -10,7 +10,8 @@ Kernel B, `pair_bucket_acc` (csrc/pair_bucket.cu):
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 only then; for CUDA tensors it launches the kernel (on the current
 stream, after checking device, dtype, shape and contiguity) or raises.
-Each wrapper counts its launches in `.launches`.
+Each wrapper counts its launches in `.launches`, and per dtype in
+`.launches_by_dtype`; `reset_counts()` zeroes both.
 """
 
 from __future__ import annotations
@@ -73,8 +74,17 @@ class _Kernel:
     prefix = ""
 
     def __init__(self):
-        self.launches = 0
         self._fns = {}
+        self.reset_counts()
+
+    def reset_counts(self):
+        self.launches = 0
+        self.launches_by_dtype = {}
+
+    def _count(self, dtype):
+        self.launches += 1
+        self.launches_by_dtype[dtype] = \
+            self.launches_by_dtype.get(dtype, 0) + 1
 
     def _fn(self, dtype):
         fn = self._fns.get(dtype)
@@ -134,7 +144,7 @@ class FusedBilinear(_Kernel):
         _launch(self._fn(dtype), Af.device, Af.data_ptr(), Bf.data_ptr(),
                 table.data_ptr(), out.data_ptr(), n, Af.shape[1],
                 Bf.shape[1], d_out, g)
-        self.launches += 1
+        self._count(dtype)
         return out
 
 
@@ -270,7 +280,7 @@ class PairBucketAcc(_Kernel):
         _launch(self._fn(dtype), Yf.device, Yf.data_ptr(), Yf.shape[0], nb,
                 i1.data_ptr(), i2.data_ptr(), row_ptr.data_ptr(),
                 chunk_ptr.data_ptr(), n_chunks, out.data_ptr(), cap)
-        self.launches += 1
+        self._count(dtype)
         return out
 
 

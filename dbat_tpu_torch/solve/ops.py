@@ -1,11 +1,16 @@
-"""Bundle operators: residual vector and problem structure (counterpart
-of dbat_tpu/solve/ops.py, without the dense normal-equation oracle).
+"""Bundle operators: residual vector, problem structure and the dense
+normal equations (counterpart of dbat_tpu/solve/ops.py).
 
 Per-observation residuals and Jacobian blocks come from
-models/residuals.py; the Jacobian itself is never materialized.  The
-residual-vector order matches the reference ([image x/y per obs; IO
-priors; EO priors; OP priors], core/serial.py), so sigma0 and
-per-observation residuals are element-comparable with DBAT reports.
+models/residuals.py; the Jacobian itself is never materialized: the
+weighted outer products of the per-observation blocks are scattered
+straight into N = J'WJ and g = J'Wr.  The residual-vector order matches
+the reference ([image x/y per obs; IO priors; EO priors; OP priors],
+core/serial.py), so sigma0 and per-observation residuals are
+element-comparable with DBAT reports.
+
+The dense N is exact and is the oracle for the Schur path in schur.py;
+bundle() takes it for networks of at most 2000 unknowns.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from ..core.serial import SerialSpec, deserialize, serialize
 from ..device import as_dtype, np_dtype, resolve_device
 from ..models.residuals import make_obs_jacobian_fn, make_obs_residual_fn
+from .segsum import SegScatter
 
 
 class BundleOps:
@@ -134,12 +140,72 @@ class BundleOps:
         r_pr = (x[self.prior_x] - self.prior_val) * self.prior_w
         return torch.cat([r_ip, r_pr])
 
+    # -- normal equations ---------------------------------------------------
+    def _dense_plans(self):
+        """Scatter plans of the per-observation blocks into the flat
+        (n_x+1)^2 N and the (n_x+1,) g; fixed columns go to the scratch
+        index n_x.  Built at the first dense assembly: the Schur
+        subclass never needs them."""
+        plans = getattr(self, "_dense_scatter", None)
+        if plans is None:
+            nx = self.n_x
+            idx = np.where(self.cols_np >= 0, self.cols_np, nx).astype(
+                np.int64)
+            n_blk = (idx[:, :, None] * (nx + 1) + idx[:, None, :])
+            plans = (SegScatter(n_blk, device=self.device),
+                     SegScatter(idx, device=self.device))
+            self._dense_scatter = plans
+        return plans
+
+    def _normal(self, x):
+        """Dense weighted normal equations.
+
+        Returns (N, g, rw) with N = J'WJ (n_x,n_x), g = J'Wr (n_x,),
+        rw the weighted residual vector.  Fixed-parameter columns are
+        routed to a scratch row that is sliced away."""
+        n_plan, g_plan = self._dense_plans()
+        io, eo, op = self.params_of_x(x)
+        v, jio, jeo, jop = self._jac_fn(
+            io[self.obs_img], eo[self.obs_img], op[self.obs_pt],
+            self.ip_px, self.px_obs,
+        )
+        J = torch.cat([jio, jeo, jop], 2)  # (n, 2, nb)
+        Jw = J * self.w_ip[:, :, None]
+        vw = v * self.w_ip
+
+        nx = self.n_x
+        dev, dt = self.device, self.dtype
+        blocks = torch.einsum("nki,nkj->nij", Jw, Jw)
+        N = n_plan.add_into(torch.zeros((nx + 1) ** 2, dtype=dt, device=dev),
+                            blocks.reshape(-1)).view(nx + 1, nx + 1)
+        g = g_plan.add_into(torch.zeros(nx + 1, dtype=dt, device=dev),
+                            torch.einsum("nki,nk->ni", Jw, vw).reshape(-1))
+
+        # Prior rows: unit Jacobian at prior_x scaled by prior_w.  Each
+        # x index has at most one prior observation (core/serial.py), so
+        # these accumulating writes have unique targets.
+        r_pr = (x[self.prior_x] - self.prior_val) * self.prior_w
+        N.index_put_((self.prior_x, self.prior_x), self.prior_w ** 2,
+                     accumulate=True)
+        g.index_put_((self.prior_x,), self.prior_w * r_pr, accumulate=True)
+
+        rw = torch.cat([vw.reshape(-1), r_pr])
+        return N[:nx, :nx], g[:nx], rw
+
+    def normal(self, x):
+        """Normal-equation state at x (see normal_state.py)."""
+        from .normal_state import DenseNormalState
+
+        N, g, rw = self._normal(torch.as_tensor(x, device=self.device)
+                                .to(self.dtype))
+        return DenseNormalState(N, g, rw)
+
     # -- structural rank ----------------------------------------------------
-    def structural_rank(self) -> int:
-        """sprank of the Jacobian pattern via bipartite matching (host
-        scipy; replaces the reference's sprank check,
-        gauss_newton_armijo.m:130-142).  Cached: the pattern is static."""
-        cached = getattr(self, "_structural_rank", None)
+    def _column_matching(self) -> np.ndarray:
+        """Maximum bipartite matching of the Jacobian pattern's columns
+        (host scipy), one entry per unknown, -1 where unmatched.
+        Cached: the pattern is static."""
+        cached = getattr(self, "_match", None)
         if cached is not None:
             return cached
         import scipy.sparse as sp
@@ -147,22 +213,29 @@ class BundleOps:
 
         cols = self.cols_np
         n, nb = cols.shape
-        rows_i = []
-        cols_i = []
-        for k in range(2):
-            rr = 2 * np.arange(n) + k
-            rows_i.append(np.repeat(rr, nb))
-            cols_i.append(cols.reshape(-1))
-        pr_x = self.prior_x_np
-        rows_i.append(2 * n + np.arange(pr_x.size))
-        cols_i.append(pr_x)
-        rows_i = np.concatenate(rows_i)
-        cols_i = np.concatenate(cols_i)
+        rows_i = np.concatenate(
+            [np.repeat(2 * np.arange(n), nb),
+             np.repeat(2 * np.arange(n) + 1, nb),
+             2 * n + np.arange(self.prior_x_np.size)]
+        )
+        cols_i = np.concatenate(
+            [cols.reshape(-1), cols.reshape(-1), self.prior_x_np]
+        )
         keep = cols_i >= 0
         A = sp.csr_matrix(
             (np.ones(keep.sum(), dtype=np.int8), (rows_i[keep], cols_i[keep])),
             shape=(self.n_res, self.n_x),
         )
-        match = maximum_bipartite_matching(A, perm_type="row")
-        self._structural_rank = int((match >= 0).sum())
-        return self._structural_rank
+        self._match = maximum_bipartite_matching(A, perm_type="row")
+        return self._match
+
+    def unmatched_columns(self) -> np.ndarray:
+        """Unknowns left unmatched by a maximum bipartite matching of
+        the Jacobian pattern: the suspects of a structural rank
+        deficiency (bundle.m:370-400)."""
+        return np.flatnonzero(self._column_matching() < 0)
+
+    def structural_rank(self) -> int:
+        """sprank of the Jacobian pattern (replaces the reference's
+        sprank check, gauss_newton_armijo.m:130-142)."""
+        return self.n_x - len(self.unmatched_columns())

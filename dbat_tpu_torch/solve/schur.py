@@ -11,10 +11,10 @@ dbat_tpu/solve/schur.py, single-device path).
 
 Block products run through FlatBilinear (kernel A on the card), the
 off-diagonal S fill-in through PairBucketPlan (kernel B); reductions
-are SegSum plans and scatters into U, S and the gradients are
-`index_put_(accumulate=True)` on index maps built once here.  On CUDA
-those scatters accumulate with atomics, so f32 results vary in the
-last bits from run to run.
+are SegSum plans, and the scatters into U, S and the camera gradient
+are SegScatter plans on index maps built once here.  Every sum runs in
+an order fixed at setup, with no atomics, so f32 results on the card
+repeat bit for bit from run to run.
 
 Deferred (same numbers through this general path): the packed-R plan
 for uniform ray counts, the `_img_block6` windowed scatter, the
@@ -30,7 +30,7 @@ from .flatsel import FlatBilinear, abt_terms, ata_terms, atb_terms, \
     matmul_terms
 from .kernels import PairBucketPlan
 from .ops import BundleOps
-from .segsum import SegSum
+from .segsum import SegScatter, SegSum
 from .smallblas import chol3x3, inv3x3
 
 #: Cholesky jitter ladder for the f32 scaled camera system: the first
@@ -135,18 +135,25 @@ class SchurOps(BundleOps):
         ).astype(np.int64)[:, cam_active]
         icols = np.where(img_cols >= 0, img_cols, nc)
         self.icols = torch.as_tensor(icols, device=dev)  # (n_img, nb)
-        # Flat (nc+1)^2 scatter maps of the per-image blocks and of the
-        # camera-pair fill-in blocks and their transposes.
+        # Scatter plans (SegScatter: each target written once, its
+        # sources summed in a fixed order): per-image camera entries
+        # into (nc+1,); per-image blocks into the flat (nc+1)^2 U; and
+        # for S the per-image blocks, the camera-pair fill-in blocks and
+        # their transposes, read from [Dimg; acc] in one plan.
         n1 = nc + 1
-        self._img_blk = torch.as_tensor(
-            (icols[:, :, None] * n1 + icols[:, None, :]).reshape(-1),
-            device=dev)
+        self._cam_scatter = SegScatter(icols, device=dev)
+        img_blk = (icols[:, :, None] * n1 + icols[:, None, :]).reshape(-1)
+        self._u_scatter = SegScatter(img_blk, device=dev)
         c1 = icols[ukey // project.n_img]
         c2 = icols[ukey % project.n_img]
-        self._cp_blk = torch.as_tensor(
-            (c1[:, :, None] * n1 + c2[:, None, :]).reshape(-1), device=dev)
-        self._cp_blk_t = torch.as_tensor(
-            (c2[:, None, :] * n1 + c1[:, :, None]).reshape(-1), device=dev)
+        cp_blk = (c1[:, :, None] * n1 + c2[:, None, :]).reshape(-1)
+        cp_blk_t = (c2[:, None, :] * n1 + c1[:, :, None]).reshape(-1)
+        n_img_blk = img_blk.size
+        acc_src = n_img_blk + np.arange(cp_blk.size)
+        self._s_scatter = SegScatter(
+            np.concatenate([img_blk, cp_blk, cp_blk_t]),
+            src=np.concatenate([np.arange(n_img_blk), acc_src, acc_src]),
+            n_src=n_img_blk + cp_blk.size, device=dev)
         self._diag_idx = torch.arange(nc, device=dev) * (n1 + 1)
         #: host syncs made by the f32 jitter ladder (one per rung tried)
         self.host_syncs = 0
@@ -159,7 +166,7 @@ class SchurOps(BundleOps):
     def _scatter_cam(self, vec_img):
         """(n_img, nb) per-image camera entries -> (nc,) by icols."""
         out = torch.zeros(self.n_c + 1, dtype=self.dtype, device=self.device)
-        out.index_add_(0, self.icols.reshape(-1), vec_img.reshape(-1))
+        self._cam_scatter.add_into(out, vec_img.reshape(-1))
         return out[: self.n_c]
 
     # ------------------------------------------------------------------
@@ -212,7 +219,7 @@ class SchurOps(BundleOps):
         gA = torch.einsum("nka,nk->na", A, vw)
         img_red = self._seg_img(torch.cat([self._fb_u(Af, Af), gA], 1))
         U = torch.zeros((nc + 1) ** 2, dtype=self.dtype, device=self.device)
-        U.index_add_(0, self._img_blk, img_red[:, : nb * nb].reshape(-1))
+        self._u_scatter.add_into(U, img_red[:, : nb * nb].reshape(-1))
         U = U.view(nc + 1, nc + 1)[:nc, :nc]
         gc = self._scatter_cam(img_red[:, nb * nb:])
 
@@ -224,7 +231,9 @@ class SchurOps(BundleOps):
         # W: per-observation camera-point cross blocks.
         Wb = self._fb_w(Af, Bf).reshape(n, nb, 3)
 
-        # Priors.
+        # Priors.  Each x index has at most one prior observation (only
+        # a parameter's leading entry carries it, core/serial.py), so
+        # these accumulating writes have unique targets.
         r_pr = (x[self.prior_x] - self.prior_val) * self.prior_w
         if self.cam_prior_x.shape[0]:
             w_c = self.prior_w[self.cam_prior_sel]
@@ -269,11 +278,10 @@ class SchurOps(BundleOps):
         S = torch.zeros(n1 * n1, dtype=self.dtype, device=self.device)
         S.view(n1, n1)[:nc, :nc] = U
         S[self._diag_idx] += lam
-        S.index_add_(0, self._img_blk, Dimg.reshape(-1), alpha=-1)
+        parts = [Dimg.reshape(-1)]
         if self._pair_plan is not None:
-            acc = self._pair_plan(Yf, self._fb_pair).reshape(-1)
-            S.index_add_(0, self._cp_blk, acc, alpha=-1)
-            S.index_add_(0, self._cp_blk_t, acc, alpha=-1)
+            parts.append(self._pair_plan(Yf, self._fb_pair).reshape(-1))
+        self._s_scatter.add_into(S, torch.cat(parts), alpha=-1.0)
         return S.view(n1, n1)[:nc, :nc]
 
     def _reduce_rhs(self, Vinv, Wb, rc, rp):
@@ -366,3 +374,40 @@ class SchurOps(BundleOps):
         yp = yp + self._seg_pt(torch.einsum("nab,na->nb", Wb, pcg))
         yp = yp * self.op_mask
         return self.join_x(yc, yp)
+
+    # ------------------------------------------------------------------
+    def normal(self, x):
+        x = torch.as_tensor(x, device=self.device).to(self.dtype)
+        return SchurNormalState(self, *self._assemble_impl(x))
+
+
+class SchurNormalState:
+    """Normal-equation state of the Schur backend (see normal_state.py):
+    the assembled U, V, W blocks and gradients at one x."""
+
+    def __init__(self, ops: SchurOps, U, V, Wb, gc, gp, rw):
+        self.ops = ops
+        self.U, self.V, self.Wb = U, V, Wb
+        self.gc, self.gp = gc, gp
+        self.rw = rw
+        self.g = ops.join_x(gc, gp)
+        self.n_x = ops.n_x
+
+    def _diag_parts(self):
+        dV = torch.diagonal(self.V, dim1=-2, dim2=-1) * self.ops.op_mask
+        return torch.diagonal(self.U), dV
+
+    def diag(self):
+        dU, dV = self._diag_parts()
+        return self.ops.join_x(dU, dV)
+
+    def trace_diag(self):
+        dU, dV = self._diag_parts()
+        return float(dU.sum() + dV.sum())
+
+    def matvec(self, p):
+        return self.ops._matvec_impl(self.U, self.V, self.Wb, p)
+
+    def solve(self, rhs, lam: float = 0.0):
+        sol, L = self.ops._solve_impl(self.U, self.V, self.Wb, rhs, lam)
+        return sol, bool(torch.isnan(L).any())

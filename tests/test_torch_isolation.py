@@ -17,10 +17,22 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dbat_tpu_torch"
 
 
+#: modules that must be among the files the import check reads
+PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
+                "solve/bundle.py", "solve/solvers.py", "solve/fused.py",
+                "solve/ops.py", "solve/schur.py", "solve/segsum.py")
+
+
 def _port_python_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     return files
+
+
+def test_import_check_covers_the_bundle_slice():
+    files = set(_port_python_files())
+    for mod in PORT_MODULES:
+        assert PORT / mod in files, mod
 
 
 def _imported_modules(path):
@@ -87,3 +99,20 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_bundle_without_device_raises_without_a_card(monkeypatch):
+    """bundle() and the dense BundleOps default to the card too."""
+    from dbat_tpu_torch.core.serial import build_serial
+    from dbat_tpu_torch.pipeline.synthetic import make_ring_network
+    from dbat_tpu_torch.solve.bundle import bundle
+    from dbat_tpu_torch.solve.ops import BundleOps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = make_ring_network(n_img=6, n_pt=30, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BundleOps(t, build_serial(t))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle(t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle(t, dtype=torch.float32, backend="schur", device="cuda")

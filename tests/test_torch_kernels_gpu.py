@@ -8,6 +8,12 @@ toolkit are installed:
 (--noconftest: tests/conftest.py configures JAX.)  Without a card every
 test skips itself.
 
+Beside the kernels: the fixed-order sums (SegSum, SegScatter, and one
+Schur assembly and S build) repeat bit for bit on the card and agree
+with the CPU's sums (f64, 1e-12 of the largest entry); a small f64
+bundle() on the card agrees with the same call on the CPU (code and
+iterations equal, sigma0 within 1e-8 relative).
+
 Tolerances: kernel A sums its g <= 3 products in term order with
 explicitly rounded operations, as the plain version does, so it agrees
 to a few ulps of the largest output (f32 1e-6, f64 1e-13 on
@@ -40,11 +46,18 @@ SHAPES = [
     # one; f64 nb = 32: 512 of two) loop over vectors per thread.
     (abt_terms(17, 3, 17), 51, 51, 289),
     (abt_terms(32, 3, 32), 96, 96, 1024),
+    # nb = 6, fixed IO (the roma watchdog network): U, W, Y and Y Y'.
+    (ata_terms(2, 6), 12, 12, 36),
+    (atb_terms(2, 6, 3), 12, 6, 18),
+    (matmul_terms(6, 3, 3), 18, 9, 18),
+    (abt_terms(6, 3, 6), 18, 18, 36),
 ]
 DTYPES = [(torch.float32, 1e-6, 2e-5), (torch.float64, 1e-13, 1e-12)]
-#: 16 = 6 EO + 5 linear IO terms + K1..K3 + P1, P2, the widest camera
-#: block of DBAT's models; 32 is the widest kernel B takes.
-NBS = [7, 14, 16, PAIR_BUCKET_MAX_NB]
+#: 6 = EO only (fixed IO; an f32 Y row of 72 bytes, 8- but not
+#: 16-byte aligned); 16 = 6 EO + 5 linear IO terms + K1..K3 + P1, P2,
+#: the widest camera block of DBAT's models; 32 is the widest kernel B
+#: takes.
+NBS = [6, 7, 14, 16, PAIR_BUCKET_MAX_NB]
 
 
 def _card():
@@ -187,3 +200,85 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="nb <="):
         pair_bucket_acc(torch.zeros((8, 3 * nb), device=dev), idx, idx,
                         idx[:3], wide.table(dev), nb * nb, wide.g, 16, chunks)
+
+
+def _small_net():
+    from dbat_tpu_torch.core.serial import build_serial
+    from dbat_tpu_torch.pipeline.synthetic import make_ring_network, perturb
+
+    s = make_ring_network(
+        n_img=12, n_pt=400, rays_per_pt=(3, 9), n_obs_target=2000,
+        n_ctrl=4, noise_px=0.1,
+        est_io_cols=("cc", "px", "py", "K1", "K2", "K3", "P1", "P2"),
+        seed=5)
+    perturb(s, eo_pos=0.02, eo_ang=0.004, op_pos=0.02, seed=6)
+    return s, build_serial(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixed_order_sums_repeat_on_the_card(dtype):
+    from dbat_tpu_torch.solve.schur import SchurOps
+    from dbat_tpu_torch.solve.segsum import SegScatter, SegSum
+    from dbat_tpu_torch.solve.smallblas import inv3x3
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    ids = np.minimum(rng.geometric(0.002, 20000) - 1, 40)  # long segments
+    data = rng.normal(size=(len(ids), 5))
+    seg = SegSum(ids, 41, device=dev)
+    a = seg(torch.as_tensor(data, dtype=dtype, device=dev))
+    assert torch.equal(a, seg(torch.as_tensor(data, dtype=dtype,
+                                              device=dev)))
+    targets = rng.integers(0, 50, 30000)
+    plan = SegScatter(targets, device=dev)
+    flat = torch.as_tensor(data[:, 0].repeat(2)[:30000], dtype=dtype,
+                           device=dev)
+    b = plan.add_into(torch.zeros(50, dtype=dtype, device=dev), flat)
+    assert torch.equal(b, plan.add_into(
+        torch.zeros(50, dtype=dtype, device=dev), flat))
+    if dtype == torch.float64:
+        ref = SegSum(ids, 41)(torch.as_tensor(data))
+        np.testing.assert_allclose(a.cpu().numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-12 * ref.abs().max().item())
+        ref_b = np.zeros(50)
+        np.add.at(ref_b, targets, flat.cpu().numpy())
+        np.testing.assert_allclose(b.cpu().numpy(), ref_b, rtol=0,
+                                   atol=1e-12 * np.abs(ref_b).max())
+
+    s, spec = _small_net()
+    ops = SchurOps(s, spec, dtype=dtype, device=dev)
+    x0 = ops.x0().to(dtype)
+    runs = []
+    for _ in range(2):
+        U, V, Wb, gc, gp, rw = ops._assemble_impl(x0)
+        S = ops._schur_S(U, inv3x3(V), Wb, 0.0)
+        runs.append((U, V, Wb, gc, gp, rw, S))
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+    if dtype == torch.float64:
+        cpu = SchurOps(s, spec, dtype=dtype, device="cpu")
+        U, V, Wb, gc, gp, rw = cpu._assemble_impl(x0.cpu())
+        S = cpu._schur_S(U, inv3x3(V), Wb, 0.0)
+        for card, host in zip(runs[0], (U, V, Wb, gc, gp, rw, S)):
+            np.testing.assert_allclose(card.cpu().numpy(), host.numpy(),
+                                       rtol=0,
+                                       atol=1e-12 * host.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_small_bundle_on_the_card_matches_the_cpu():
+    from dbat_tpu_torch.solve.bundle import bundle
+
+    dev = _card()
+    out = {}
+    for where in (dev, "cpu"):
+        s, _spec = _small_net()
+        _p, ok, iters, sigma0, info = bundle(
+            s, damping="lm", backend="schur", conv_tol=1e-4, device=where)
+        out[str(where)] = (ok, iters, info.code, sigma0, s.op)
+    card, cpu = out[str(dev)], out["cpu"]
+    assert card[0] and card[:3] == cpu[:3]
+    assert card[3] == pytest.approx(cpu[3], rel=1e-8)
+    np.testing.assert_allclose(card[4], cpu[4], rtol=0,
+                               atol=1e-8 * np.abs(cpu[4]).max())
