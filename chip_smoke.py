@@ -14,7 +14,8 @@ Phases, each printing its elapsed seconds as it ends:
      its SchurOps in float32 and float64;
   4. kernel checks: every kernel on the inputs the main paths give it
      (C5 f32; roma f32 and f64, the watchdog's and the polish's shapes;
-     a small network in f64), against its plain PyTorch version, with
+     C5 f64, the covariance's; a small network in f64), against its
+     plain PyTorch version, with
      its device time with the L2 flushed (held against its HBM bound)
      and in a burst of launches (operands warm in L2), the time of one
      call with the wrapper's host work, the host microseconds per call,
@@ -31,9 +32,21 @@ Phases, each printing its elapsed seconds as it ends:
      fresh networks, bench.py's gate (ok and sigma0 < 1.05) on each;
   9. the f64 polish: an f32 bundle() asked for a relative criterion f32
      cannot certify, so the f64 polish runs on the card; its outcome is
-     held to the JAX package's on the same network (POLISH_EXPECT).
-Phases 6, 8 and 9 each zero the launch counts just before and read them
-just after; every kernel must have launched in each (in f64 in 9).
+     held to the JAX package's on the same network (POLISH_EXPECT);
+ 10. the posterior covariance at the C5 shape: an f32 bundle() to the
+     noise floor, then on a fresh Covariance (extraction in f64 on the
+     card) factorize, cio, ceo, ciof, cop over every point
+     cold and warm, posterior_std, significance and the correlation
+     lists; every posterior block finite and every estimated variance
+     positive; cop bitwise equal on a second fresh Covariance; copf's
+     diagonal blocks equal to cop's (COPF_REL_TOL); the posterior std
+     within STD_REL_TOL of an f64 extraction of the same solution in
+     the world frame; the DBAT result file written (write_report).
+Phase 5 also holds the small network's f64 covariance on the card to
+the CPU's (COV_SMALL_TOL) and f64 PCG on the card to the direct solve.
+Phases 6, 8, 9 and 10 each zero the launch counts just before and read
+them just after; every kernel must have launched in each (in f64 in 9;
+in 10 both in the bundle and in the covariance after it).
 
 Exits nonzero, printing no result, without a CUDA card or when any
 phase fails.  The last three lines are the kernels JSON, the card's
@@ -72,6 +85,18 @@ POLISH_CALL = dict(damping="lm", dtype="float32", backend="schur",
 POLISH_EXPECT = dict(ok=True, code=0, iters=6, polish_iters=3,
                      sigma0_prepolish=0.9907043526656706,
                      sigma0=0.9906293873032684)
+#: Small network, f64 covariance card vs CPU: max |diff| / max |CPU| of
+#: each extraction (sums in another order, amplified by S's condition).
+COV_SMALL_TOL = 1e-9
+#: C5, f64 extraction: copf's diagonal 3x3 blocks against cop's, over
+#: each block's largest entry (copf scatters W and multiplies by V^-1
+#: after the sum, cop folds V^-1 into each ray first).
+COPF_REL_TOL = 1e-8
+#: C5: posterior std of every estimated parameter from the f32 bundle's
+#: f64 extraction, in the solve's centred frame, against an
+#: f64 extraction of the same solution in the world frame, relative:
+#: f64 rounding amplified by the scaled S's condition (~1e7-1e8).
+STD_REL_TOL = 1e-6
 
 
 def log(msg):
@@ -314,6 +339,166 @@ def read_counts(dtype=None):
             else k.launches_by_dtype.get(dtype, 0) for k in KERNELS}
 
 
+def estimated_variances(blocks, xmap):
+    """Diagonals of (n, k, k) posterior blocks at estimated parameters."""
+    import numpy as np
+
+    return np.einsum("nii->ni", blocks)[np.asarray(xmap) >= 0]
+
+
+def std_gap(std_a, std_b):
+    """{io/eo/op: (max, median) of |a / b - 1|} over the parameters b
+    estimates; raises when a and b estimate different parameters."""
+    import numpy as np
+
+    out = {}
+    for nm, a, b in zip(("io", "eo", "op"), std_a, std_b):
+        est = np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), est):
+            raise RuntimeError(f"{nm} std: estimated parameters differ")
+        r = np.abs(a[est] / b[est] - 1)
+        out[nm] = (float(r.max()), float(np.median(r)))
+    return out
+
+
+def covariance_phase(floor, card, launches):
+    """Phase 10: bundle() at the C5 shape in f32, then the posterior
+    covariance (extracted in f64 on the card), its statistics and the
+    result file.  Raises on a failed gate; returns the numbers it
+    printed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dbat_tpu_torch.io.report import write_report
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING
+    from dbat_tpu_torch.solve.bundle import BundleInfo, bundle
+    from dbat_tpu_torch.solve.covariance import Covariance
+    from dbat_tpu_torch.solve.quality import (
+        high_correlations, high_eo_correlations, high_io_correlations_cross,
+        high_point_correlations, point_correlations, significance,
+    )
+    from dbat_tpu_torch.solve.schur import SchurOps
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    sc, _ = net(C5_RING, 18)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (_p, ok, iters, sigma0, info), bundle_s = timed(lambda: bundle(
+        sc, damping="gna", dtype="float32", backend="schur", max_iter=20,
+        conv_tol=floor, abs_term=True, device="cuda"))
+    launches["covariance bundle"] = read_counts()
+    log(f"covariance phase on {card}: bundle(gna, f32, schur, conv_tol="
+        f"floor, abs_term) at the C5 shape: ok {ok}, code {info.code}, "
+        f"{iters} iterations, sigma0 {sigma0!r}, polish_iters "
+        f"{info.polish_iters}, {bundle_s:.3f} s; launches "
+        f"{launches['covariance bundle']}")
+    if not ok:
+        raise RuntimeError("covariance phase: the C5 bundle() failed")
+
+    reset_counts()
+    cov, init_s = timed(lambda: Covariance(sc, info))
+    _, fact_s = timed(cov.factorize)
+    (cio, ceo, (ciof, io_entries)), cam_s = timed(
+        lambda: (cov.cio(), cov.ceo(), cov.ciof()))
+    cop, cop_cold = timed(cov.cop)
+    cop_w, cop_warm = timed(cov.cop)
+    std, std_s = timed(cov.posterior_std)
+    spec = info.spec
+    sig = significance(sc, spec, cio)
+    corr = {"io": len(high_correlations(cio)),
+            "eo": len(high_eo_correlations(ceo, sc.eo_block)),
+            "io cross": len(high_io_correlations_cross(ciof, io_entries)),
+            "op values": len(high_point_correlations(cop))}
+    max_pt_corr = float(np.abs(point_correlations(cop)).max())
+    launches["covariance"] = read_counts()
+    f64_launches = read_counts(torch.float64)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  Covariance (f64 extraction: the f32 ops rebuilt in f64 on the "
+        f"card) {init_s:.3f} s; factorize cold {fact_s:.3f} s (jitter rung "
+        f"{cov.jitter}); cio + ceo + ciof {cam_s:.3f} s; cop over "
+        f"{sc.n_op} points cold {cop_cold:.3f} s, warm {cop_warm:.3f} s "
+        f"(same instance); posterior_std {std_s:.3f} s; peak CUDA memory "
+        f"{peak_gb:.3f} GB; launches {launches['covariance']}, of them f64 "
+        f"{f64_launches}")
+    log(f"  significance K p-values (image 0) {sig['K'][0]}, P {sig['P'][0]}"
+        f"; correlations above 0.95: {corr}; largest point correlation "
+        f"{max_pt_corr:.4f}; IO std {std[0][0]}")
+
+    blocks = {"cio": (cio, spec.io_x), "ceo": (ceo, spec.eo_x),
+              "cop": (cop, spec.op_x)}
+    bad = {nm: int((~np.isfinite(b)).sum()) for nm, (b, _) in blocks.items()}
+    var_min = {nm: float(estimated_variances(b, xm).min())
+               for nm, (b, xm) in blocks.items()}
+    n_var = sum(estimated_variances(b, xm).size
+                for b, xm in blocks.values())
+    log(f"  {n_var} estimated variances; non-finite entries {bad}; "
+        f"smallest estimated variance {var_min}")
+    if any(bad.values()) or not all(v > 0 for v in var_min.values()):
+        raise RuntimeError("covariance: non-finite blocks or a variance <= 0")
+    if not np.array_equal(cop, cop_w):
+        raise RuntimeError("covariance: a warm cop() differs from the cold")
+
+    cop2, cop2_s = timed(lambda: Covariance(sc, info).cop())
+    log(f"  a second fresh Covariance: build + factorize + cop {cop2_s:.3f} "
+        f"s, cop bitwise equal: {np.array_equal(cop, cop2)}")
+    if not np.array_equal(cop, cop2):
+        raise RuntimeError("covariance: cop() does not repeat bit for bit")
+
+    pts = np.linspace(0, sc.n_op - 1, 200).astype(np.int64)
+    F, copf_s = timed(lambda: cov.copf(pts=pts))
+    copf_err = max(
+        float(np.abs(F[3 * a:3 * a + 3, 3 * a:3 * a + 3] - cop[j]).max()
+              / np.abs(cop[j]).max())
+        for a, j in enumerate(pts) if np.abs(cop[j]).max() > 0)
+    log(f"  copf over 200 points ({copf_s:.3f} s): diagonal blocks vs cop, "
+        f"max |diff| / block max {copf_err:.3e} (tol {COPF_REL_TOL:g})")
+    if not copf_err <= COPF_REL_TOL:
+        raise RuntimeError("covariance: copf blocks differ from cop's")
+
+    # The same solution through an f64 SchurOps built on the network in
+    # the world frame (x serialized from the project bundle() returned),
+    # against the extraction in the solve's centred frame.
+    ops64 = SchurOps(sc, spec, dtype=torch.float64, device="cuda")
+    cov64 = Covariance(sc, BundleInfo(ops=ops64, spec=spec, sigma0=sigma0))
+    std64, std64_s = timed(cov64.posterior_std)
+    gap64 = std_gap(std, std64)
+    log(f"  f64 extraction in the world frame ({std64_s:.3f} s, jitter rung "
+        f"{cov64.jitter}) vs the centred one: (max, median) relative std "
+        f"difference {gap64} (tol {STD_REL_TOL:g})")
+    del ops64, cov64
+    if not all(v[0] <= STD_REL_TOL for v in gap64.values()):
+        raise RuntimeError("covariance: the f64 extraction depends on the "
+                           "frame")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "c5-dbatreport.txt")
+        _, report_s = timed(lambda: write_report(sc, info, path))
+        lines = open(path).read().splitlines() \
+            if os.path.exists(path) else []
+    s0_line = [ln for ln in lines if ln.strip().startswith("Sigma0:")]
+    log(f"  write_report: {len(lines)} lines in {report_s:.3f} s; "
+        f"{s0_line[0].strip() if s0_line else 'no sigma0 line'}")
+    if not (s0_line and float(s0_line[0].split(":")[1])
+            == float(f"{info.sigma0:.5g}")):
+        raise RuntimeError("covariance: the report's sigma0 line is wrong")
+    missing = [nm for key in ("covariance bundle", "covariance")
+               for nm, c in launches[key].items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"covariance phase: kernels not launched: "
+                           f"{missing}")
+    return {"build_s": init_s, "factorize_s": fact_s, "cop_cold_s": cop_cold,
+            "cop_warm_s": cop_warm, "report_s": report_s,
+            "jitter": cov.jitter, "peak_gb": peak_gb}
+
+
 def roma_net():
     from dbat_tpu_torch.pipeline.synthetic import ROMA_RING
 
@@ -329,7 +514,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dbat_tpu_torch import build
-    from dbat_tpu_torch.solve.bundle import bundle
+    from dbat_tpu_torch.solve.bundle import BundleInfo, bundle
+    from dbat_tpu_torch.solve.covariance import Covariance
     from dbat_tpu_torch.solve.fused import fused_gna
     from dbat_tpu_torch.solve.kernels import KERNELS
     from dbat_tpu_torch.pipeline.synthetic import C5_RING
@@ -405,6 +591,10 @@ def main():
     roma_rows = {"float32": check_kernels(roma32, "float32", timed=True),
                  "float64": check_kernels(roma64, "float64", timed=True)}
     del roma64
+    # The covariance extracts in f64: both kernels at the C5 shape in f64.
+    c5_64 = SchurOps(s, spec, dtype=torch.float64, device="cuda")
+    c5_64_rows = check_kernels(c5_64, "float64", timed=True)
+    del c5_64
     s_small, spec_small = net(SMALL, 6)
     ops_small = SchurOps(s_small, spec_small, dtype=torch.float64,
                          device="cuda")
@@ -431,17 +621,50 @@ def main():
     # bundle() with LM on the Schur backend.  conv_tol 1e-4 keeps the
     # last accepted LM step's decrease far above f64 rounding, so the
     # card's and the CPU's sum orders cannot decide the iteration count.
-    small = {}
+    small, small_info = {}, {}
     for where in ("cuda", "cpu"):
         sb, _ = net(SMALL, 6)
         _p, ok_b, it_b, s0_b, info_b = bundle(
             sb, damping="lm", backend="schur", conv_tol=1e-4, device=where)
         small[where] = (ok_b, info_b.code, it_b, s0_b)
+        small_info[where] = info_b
+        if where == "cuda":
+            small_info["net"] = sb
     log(f"small f64 bundle(lm, schur) on {card}: card (ok, code, iters, "
         f"sigma0) {small['cuda']}, CPU {small['cpu']}")
     if (not small["cuda"][0] or small["cuda"][:3] != small["cpu"][:3]
             or abs(small["cuda"][3] / small["cpu"][3] - 1) > 1e-8):
         raise RuntimeError("small bundle(): card and CPU disagree")
+    # The f64 posterior covariance of the card's bundle, extracted on the
+    # card and on the CPU at the same x and sigma0.
+    info_s = small_info["cuda"]
+    cov_card = Covariance(small_info["net"], info_s)
+    cov_cpu = Covariance(small_info["net"], BundleInfo(
+        ops=SchurOps(small_info["net"], info_s.spec, dtype=torch.float64,
+                     device="cpu"),
+        spec=info_s.spec, sigma0=info_s.sigma0, final_x=info_s.final_x))
+    cov_err = {}
+    for name in ("cio", "ceo", "cop"):
+        a, b = getattr(cov_card, name)(), getattr(cov_cpu, name)()
+        cov_err[name] = float(np.abs(a - b).max() / np.abs(b).max())
+    log(f"small f64 covariance on {card}: card vs CPU, max |diff| / max "
+        f"|CPU| {cov_err} (tol {COV_SMALL_TOL:g}); jitter rung card "
+        f"{cov_card.jitter}, CPU {cov_cpu.jitter}")
+    if not all(v <= COV_SMALL_TOL for v in cov_err.values()):
+        raise RuntimeError("small covariance: card and CPU disagree")
+    # f64 PCG against the direct (explicit-S) solve, on the card.
+    U, V, Wb, gc, gp, _rw = ops_small._assemble_impl(ops_small.x0())
+    g = ops_small.join_x(gc, gp)
+    p_direct, _L = ops_small._solve_impl(U, V, Wb, -g, 0.0)
+    p_pcg, (pcg_iters, pcg_rel) = ops_small._solve_pcg_impl(
+        U, V, Wb, -g, 0.0, tol=1e-12, maxiter=2000)
+    pcg_err = float((p_pcg - p_direct).abs().max()
+                    / p_direct.abs().max())
+    log(f"small f64 pcg_solve on {card}: {pcg_iters} iterations, relative "
+        f"residual {pcg_rel:.3e}; max |p_pcg - p_direct| / max |p_direct| "
+        f"{pcg_err:.3e} (tol 1e-6)")
+    if not (pcg_rel < 1e-10 and pcg_err <= 1e-6):
+        raise RuntimeError("small pcg_solve: off the direct solve")
     phase_done("small reference", t, card)
 
     # 6. Main path ----------------------------------------------------------
@@ -585,9 +808,14 @@ def main():
         raise RuntimeError(f"kernels not launched in f64 by the polish: "
                            f"{missing}")
 
+    # 10. Posterior covariance at the C5 shape --------------------------------
+    t = time.perf_counter()
+    cov_out = covariance_phase(floor, card, launches)
+    phase_done("covariance", t, card)
+
     # Kernel summary: device times per C5 outer iteration (the five
     # kernel-A calls and the one kernel-B call of one assembly + S
-    # build, f32), launches summed over the three driven paths.
+    # build, f32), launches summed over every path in launches_by_path.
     by_kernel = {}
     for row in rows:
         by_kernel.setdefault(row["kernel"], []).append(row)
@@ -617,6 +845,9 @@ def main():
              card)
     log_rows(roma_rows["float64"], "roma f64, the polish's shapes (one "
              "assembly + solve)", card)
+    log_rows(c5_64_rows, "C5 f64, the covariance's shapes (one assembly + "
+             "solve)", card)
+    log(f"covariance at the C5 shape, f32, on {card}: {cov_out}")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

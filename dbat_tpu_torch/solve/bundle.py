@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -175,6 +175,20 @@ def _shift_network(p, d):
         p.prior_op_val = p.prior_op_val + d
     if p.prior_eo_val is not None:
         p.prior_eo_val = p.prior_eo_val + d6
+
+
+def ops_f64(project, info):
+    """info.ops if f64, else the same backend rebuilt in f64 on its
+    device from `project` (as bundle() returns it, in the world frame)
+    moved into the solve's frame by info.center_offset, so that
+    info.final_x applies to it."""
+    ops = info.ops
+    if ops.dtype == torch.float64:
+        return ops
+    p = replace(project)
+    if info.center_offset is not None:
+        _shift_network(p, -info.center_offset)
+    return type(ops)(p, info.spec, dtype=torch.float64, device=ops.device)
 
 
 def _final_eval_f64(project, spec, device):

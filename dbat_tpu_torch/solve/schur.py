@@ -16,9 +16,11 @@ are SegScatter plans on index maps built once here.  Every sum runs in
 an order fixed at setup, with no atomics, so f32 results on the card
 repeat bit for bit from run to run.
 
+`_solve_pcg_impl` solves the same system without forming S (pcg.py).
+
 Deferred (same numbers through this general path): the packed-R plan
 for uniform ray counts, the `_img_block6` windowed scatter, the
-chunked-scan mesh plan, the PCG solve.
+chunked-scan mesh plan.
 """
 
 from __future__ import annotations
@@ -362,6 +364,21 @@ class SchurOps(BundleOps):
         pc = Dinv * q
         pp = self._backsub(Vinv, Wb, rp, pc)
         return self.join_x(pc, pp), L
+
+    def _solve_pcg_impl(self, U, V, Wb, rhs, lam, tol=1e-10, maxiter=500):
+        """Matrix-free PCG camera solve + point back-substitution
+        (pcg.py): S is never formed.  Returns (p, (iterations,
+        rel_residual))."""
+        from .pcg import pcg_solve
+
+        rc, rp = self.split_x(rhs)
+        eye3 = torch.eye(3, dtype=self.dtype, device=self.device)
+        Vinv = inv3x3(V + lam * eye3 * self.op_mask[:, :, None])
+        rc_t = self._reduce_rhs(Vinv, Wb, rc, rp)
+        pc, iters, rel = pcg_solve(self, U, Vinv, Wb, rc_t, lam,
+                                   tol=tol, maxiter=maxiter)
+        pp = self._backsub(Vinv, Wb, rp, pc)
+        return self.join_x(pc, pp), (iters, rel)
 
     def _matvec_impl(self, U, V, Wb, p):
         """N p without forming N."""

@@ -1,0 +1,64 @@
+"""What the port's parity tests share.
+
+jax_solved(): the network that the covariance and report parity tests
+(test_torch_covariance.py, test_torch_report.py) share, solved once per
+process: a small self-calibrating ring network, the rotation of image 0
+fixed (so the fixed-column paths of the covariance run), perturbed, and
+solved by the JAX package's f64 bundle() on the Schur backend on the
+CPU.
+
+one_thread: an autouse module fixture (import it into a test module)
+that runs the port's CPU work there on one thread.  Under pytest-xdist
+every worker's default thread pool spans all cores, and the many small
+operations of a port solve then wait on one another: several times
+slower than on one thread when the cores are busy."""
+
+import dataclasses
+import functools
+
+import pytest
+import torch
+
+from dbat_tpu.pipeline.synthetic import make_ring_network as jmake
+from dbat_tpu.pipeline.synthetic import perturb as jperturb
+from dbat_tpu.solve.bundle import bundle as jbundle
+from dbat_tpu_torch.core.project import Project, project_from_arrays
+
+NET = dict(n_img=12, n_pt=400, rays_per_pt=(3, 9), n_obs_target=2000,
+           n_ctrl=4, noise_px=0.1,
+           est_io_cols=("cc", "px", "py", "K1", "K2", "K3", "P1", "P2"),
+           seed=5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def port_project(p):
+    """A port Project with copies of the arrays of project p (either
+    package's)."""
+    return project_from_arrays({f.name: getattr(p, f.name)
+                                for f in dataclasses.fields(Project)})
+
+
+@functools.cache
+def _solved():
+    j = jmake(**NET)
+    j.est_eo[0, 3:] = False
+    jperturb(j, eo_pos=0.01, eo_ang=0.002, op_pos=0.01, seed=4)
+    start = port_project(j)
+    pj, ok, _it, _s0, ij = jbundle(j, backend="schur")
+    assert ok
+    return start, pj, ij
+
+
+def jax_solved():
+    """(start, pj, ij): a fresh port copy of the network before the
+    solve, and the JAX package's result project and BundleInfo (shared:
+    read them, do not change them)."""
+    start, pj, ij = _solved()
+    return port_project(start), pj, ij

@@ -20,7 +20,10 @@ PORT = ROOT / "dbat_tpu_torch"
 #: modules that must be among the files the import check reads
 PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
                 "solve/bundle.py", "solve/solvers.py", "solve/fused.py",
-                "solve/ops.py", "solve/schur.py", "solve/segsum.py")
+                "solve/ops.py", "solve/schur.py", "solve/segsum.py",
+                "solve/quality.py", "solve/pcg.py", "solve/covariance.py",
+                "geometry/__init__.py", "geometry/initvals.py",
+                "geometry/quality.py", "io/__init__.py", "io/report.py")
 
 
 def _port_python_files():

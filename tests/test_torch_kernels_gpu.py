@@ -12,7 +12,11 @@ Beside the kernels: the fixed-order sums (SegSum, SegScatter, and one
 Schur assembly and S build) repeat bit for bit on the card and agree
 with the CPU's sums (f64, 1e-12 of the largest entry); a small f64
 bundle() on the card agrees with the same call on the CPU (code and
-iterations equal, sigma0 within 1e-8 relative).
+iterations equal, sigma0 within 1e-8 relative).  The posterior
+covariance of the small network: COP of f32 ops (extracted in f64)
+repeats bit for bit over two fresh instances, and the f64 extraction
+on the card matches the CPU's (1e-9 of the largest entry); f64 PCG on
+the card matches the direct solve.
 
 Tolerances: kernel A sums its g <= 3 products in term order with
 explicitly rounded operations, as the plain version does, so it agrees
@@ -282,3 +286,88 @@ def test_small_bundle_on_the_card_matches_the_cpu():
     assert card[3] == pytest.approx(cpu[3], rel=1e-8)
     np.testing.assert_allclose(card[4], cpu[4], rtol=0,
                                atol=1e-8 * np.abs(cpu[4]).max())
+
+
+def _small_solved(dev, dtype):
+    """The small network after an f64 bundle() on the card, and a
+    BundleInfo whose ops are a fresh SchurOps in `dtype` on `dev`."""
+    from dbat_tpu_torch.solve.bundle import BundleInfo, bundle
+    from dbat_tpu_torch.solve.schur import SchurOps
+
+    s, spec = _small_net()
+    _p, ok, _it, sigma0, info = bundle(s, backend="schur", device=dev)
+    assert ok
+    ops = SchurOps(s, spec, dtype=dtype, device=dev)
+    return s, BundleInfo(ops=ops, spec=spec, sigma0=sigma0,
+                         final_x=info.final_x)
+
+
+@pytest.mark.gpu
+def test_cop_repeats_bit_for_bit_on_the_card():
+    """COP of f32 ops (extracted in f64) from two fresh Covariance
+    instances (f64 ops, plans, scatters, solves and Gram products
+    rebuilt): bitwise equal, every estimated variance positive."""
+    from dbat_tpu_torch.solve.covariance import Covariance
+
+    dev = _card()
+    s, info = _small_solved(dev, torch.float32)
+    a = Covariance(s, info).cop(chunk=37)
+    b = Covariance(s, info).cop(chunk=37)
+    assert np.array_equal(a, b)
+    est = np.asarray(info.spec.op_x) >= 0
+    var = np.einsum("jii->ji", a)
+    assert np.isfinite(a).all() and (var[est] > 0).all()
+
+
+@pytest.mark.gpu
+def test_small_covariance_on_the_card_matches_the_cpu():
+    """f64: cio, ceo, cop (chunk 37 and the default), copf on the card
+    against the same extraction on the CPU, within 1e-9 of the largest
+    entry: the two sum in different orders, and the scaled S of this
+    network has a condition of ~1e7 (entries 1e-8 of the largest carry
+    the same absolute error)."""
+    from dbat_tpu_torch.solve.bundle import BundleInfo
+    from dbat_tpu_torch.solve.covariance import Covariance
+    from dbat_tpu_torch.solve.schur import SchurOps
+
+    dev = _card()
+    s, info = _small_solved(dev, torch.float64)
+    cpu_info = BundleInfo(
+        ops=SchurOps(s, info.spec, dtype=torch.float64, device="cpu"),
+        spec=info.spec, sigma0=info.sigma0, final_x=info.final_x)
+    card, host = Covariance(s, info), Covariance(s, cpu_info)
+    pts = np.arange(0, s.n_op, 9)
+    for name, kw in (("cio", {}), ("ceo", {}), ("cop", {"chunk": 37}),
+                     ("cop", {}), ("copf", {"pts": pts})):
+        got = getattr(card, name)(**kw)
+        ref = getattr(host, name)(**kw)
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-9 * np.abs(ref).max(),
+                                   err_msg=name)
+    assert card.jitter == host.jitter
+
+
+@pytest.mark.gpu
+def test_pcg_on_the_card_matches_the_direct_solve():
+    """f64 pcg_solve on the card against the direct (explicit-S) solve
+    on the card, and against the same PCG on the CPU."""
+    from dbat_tpu_torch.solve.schur import SchurOps
+
+    dev = _card()
+    s, spec = _small_net()
+    out = {}
+    for where in (dev, "cpu"):
+        ops = SchurOps(s, spec, dtype=torch.float64, device=where)
+        U, V, Wb, gc, gp, _rw = ops._assemble_impl(ops.x0())
+        g = ops.join_x(gc, gp)
+        p_direct, _L = ops._solve_impl(U, V, Wb, -g, 0.0)
+        p_pcg, (iters, rel) = ops._solve_pcg_impl(U, V, Wb, -g, 0.0,
+                                                  tol=1e-12, maxiter=2000)
+        out[str(where)] = (p_direct.cpu().numpy(), p_pcg.cpu().numpy(),
+                           iters, rel)
+    direct, pcg, iters, rel = out[str(dev)]
+    assert rel < 1e-10 and 0 < iters < 2000
+    scale = np.abs(direct).max()
+    np.testing.assert_allclose(pcg, direct, rtol=1e-6, atol=1e-8 * scale)
+    np.testing.assert_allclose(pcg, out["cpu"][1], rtol=1e-6,
+                               atol=1e-8 * scale)
