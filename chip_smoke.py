@@ -41,12 +41,30 @@ Phases, each printing its elapsed seconds as it ends:
      positive; cop bitwise equal on a second fresh Covariance; copf's
      diagonal blocks equal to cop's (COPF_REL_TOL); the posterior std
      within STD_REL_TOL of an f64 extraction of the same solution in
-     the world frame; the DBAT result file written (write_report).
+     the world frame; the DBAT result file written (write_report);
+ 11. the DBAT script runner at the C5 shape: the C5 network written as a
+     script folder (camera file, image table, 196,715 image points,
+     control points, prior EO table; write_script_folder of
+     tests/port_script_folder.py) and run by
+     run_script on the card (C5_SCRIPT_OPS: ray-count check, loaded IO
+     and EO, the self-calibration, forward intersection, the f64
+     bundle, then the report and the IO, EO and residual files), with
+     each stage's time; gates: ok and sigma0 < 1.05, every file
+     written, every EO variance finite and positive, the script's
+     project equal to the same network built in memory except in
+     SCRIPT_ONLY_FIELDS, the in-memory bundle(gna, float64, auto) with
+     the same iterations and sigma0 and x within 1e-12 relative, and
+     the report equal to the in-memory one outside VOLATILE_REPORT_KEYS
+     (compare_reports).
 Phase 5 also holds the small network's f64 covariance on the card to
-the CPU's (COV_SMALL_TOL) and f64 PCG on the card to the direct solve.
-Phases 6, 8, 9 and 10 each zero the launch counts just before and read
-them just after; every kernel must have launched in each (in f64 in 9;
-in 10 both in the bundle and in the covariance after it).
+the CPU's (COV_SMALL_TOL), f64 PCG on the card to the direct solve, and
+a DBAT script on the small network (POSEGRAPH_SCRIPT_OPS: pose-graph
+initialisation, outlier screen, bundle) run from one folder on the card
+and on the CPU to 1e-9 in sigma0 and x.
+Phases 6, 8, 9, 10 and 11 each zero the launch counts just before and
+read them just after; every kernel must have launched in each (in f64
+in 9; in 10 both in the bundle and in the covariance after it; in 11
+in f64, both in the bundle and in the output files' covariances).
 
 Exits nonzero, printing no result, without a CUDA card or when any
 phase fails.  The last three lines are the kernels JSON, the card's
@@ -505,19 +523,160 @@ def roma_net():
     return net(ROMA_RING, 24)
 
 
+#: The fields in which a script's project may differ from the network it
+#: was written from: names, labels, paths and the prior EO table's
+#: values (initial values only; prior_eo_use stays all False).
+SCRIPT_ONLY_FIELDS = ("prior_eo_val", "prior_eo_std", "op_labels",
+                      "img_names", "img_labels", "title", "file_name",
+                      "cpt_file", "eo_file")
+#: Report keys that change from run to run or with the input's paths:
+#: the computation UUID, the package version, the time stamp and
+#: execution times, and the input file names.
+VOLATILE_REPORT_KEYS = ("Computation UUID", "version", "Last Bundle Run",
+                        "Execution times", "Input file name",
+                        "Ctrl pt file", "EO file")
+
+
+def script_phase(card, launches):
+    """Phase 11: the C5 network (C5_RING, perturbed with seed 18) written
+    as a DBAT script folder (C5_SCRIPT_OPS) and run by run_script on the
+    card; held against the same network built and solved in memory by
+    bundle(gna, float64, auto) on the card.  Raises on a failed gate;
+    returns the stage times and what the comparison found."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from port_script_folder import C5_SCRIPT_OPS, as_text_carries, \
+        image_major, read_eo_file, write_script_folder
+
+    import dbat_tpu_torch.pipeline.script as script_mod
+    from dbat_tpu_torch.core.compare import compare_projects
+    from dbat_tpu_torch.geometry.initvals import forward_intersect
+    from dbat_tpu_torch.io.report import write_report
+    from dbat_tpu_torch.io.report_compare import compare_reports
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING
+    from dbat_tpu_torch.solve.bundle import bundle
+
+    # The script's project just before its bundle, and the launches of
+    # the bundle apart from those of the output files' covariances.
+    seen = {}
+    real_bundle = script_mod.bundle
+
+    def bundle_spy(project, **kwargs):
+        seen["start"] = project.copy()
+        reset_counts()
+        out = real_bundle(project, **kwargs)
+        seen["launches"] = read_counts()
+        seen["f64"] = read_counts(torch.float64)
+        reset_counts()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        xml = write_script_folder(image_major(net(C5_RING, 18)[0]), tmp,
+                                  C5_SCRIPT_OPS)
+        write_s = time.perf_counter() - t1
+        script_mod.bundle = bundle_spy
+        try:
+            r = script_mod.run_script(xml, device="cuda")
+        finally:
+            script_mod.bundle = real_bundle
+        launches["script bundle"] = seen["launches"]
+        launches["script outputs"] = read_counts()
+        out_f64 = read_counts(torch.float64)
+        written = {os.path.basename(f): os.path.getsize(f)
+                   for f in r.outputs}
+        _labels, eo_rows = read_eo_file(os.path.join(tmp, "result",
+                                                     "eo.txt"))
+        std_eo = eo_rows[:, 8:]
+        script_report = open(os.path.join(tmp, "result", "report.txt")).read()
+
+        # The same network in memory, with the values the folder carries.
+        t1 = time.perf_counter()
+        m = as_text_carries(image_major(net(C5_RING, 18)[0]))
+        m.set_cam_vals_loaded()
+        for name in ("cc", "pp", "K", "P"):
+            m.set_cam_est(name)
+        forward_intersect(m, "all", skip_prior=True)
+        mem_setup_s = time.perf_counter() - t1
+        diffs = compare_projects(seen["start"], m, rtol=0, atol=0)
+        fields = sorted({d.split(":")[0] for d in diffs})
+        t1 = time.perf_counter()
+        _p, ok_m, it_m, s0_m, info_m = bundle(
+            m, damping="gna", dtype=torch.float64, backend="auto",
+            device="cuda")
+        mem_bundle_s = time.perf_counter() - t1
+        write_report(m, info_m, os.path.join(tmp, "memory-report.txt"))
+        report_diffs = compare_reports(
+            script_report, open(os.path.join(tmp, "memory-report.txt")).read(),
+            volatile=VOLATILE_REPORT_KEYS)
+
+    xs, xm = np.asarray(r.info.final_x), np.asarray(info_m.final_x)
+    x_rel = float(np.abs(xs - xm).max() / np.abs(xm).max())
+    bitwise = bool(np.array_equal(xs, xm))
+    times = {"write folder": write_s, **r.times,
+             "memory setup": mem_setup_s, "memory bundle": mem_bundle_s}
+    log(f"script phase on {card}: n_img {r.project.n_img}, n_op "
+        f"{r.project.n_op}, n_obs {r.project.n_obs}; run_script on the "
+        f"card: ok {r.ok}, code {r.info.code}, {r.iters} iterations, "
+        f"sigma0 {r.sigma0!r}, backend {type(r.info.ops).__name__} nb "
+        f"{getattr(r.info.ops, 'n_cb', None)}; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"  launches: bundle {seen['launches']} (f64 {seen['f64']}), "
+        f"report + EO covariances {launches['script outputs']} (f64 "
+        f"{out_f64}); files {written}")
+    log(f"  in memory: ok {ok_m}, code {info_m.code}, {it_m} iterations, "
+        f"sigma0 {s0_m!r}; projects before the bundles differ in {fields} "
+        f"(allowed: {list(SCRIPT_ONLY_FIELDS)}); final x bitwise equal "
+        f"{bitwise}, max |diff| / max |x| {x_rel:.3e} (tol 1e-12)")
+    log(f"  EO file: {std_eo.size} std, smallest {std_eo.min():.3e}; "
+        f"report vs the in-memory report: {len(report_diffs)} differences "
+        f"outside {list(VOLATILE_REPORT_KEYS)}"
+        + "".join(f"\n    {d}" for d in report_diffs[:20]))
+    if not (r.ok and r.sigma0 < 1.05):
+        raise RuntimeError("script: the bundle failed bench.py's gate")
+    if len(written) != 4 or min(written.values()) == 0:
+        raise RuntimeError(f"script: output files missing: {written}")
+    if not (np.all(np.isfinite(std_eo)) and np.all(std_eo > 0)):
+        raise RuntimeError("script: an EO variance is not finite and > 0")
+    if not set(fields) <= set(SCRIPT_ONLY_FIELDS):
+        raise RuntimeError(f"script: the projects differ in {fields}")
+    if not (ok_m and it_m == r.iters and abs(s0_m / r.sigma0 - 1) <= 1e-12
+            and x_rel <= 1e-12):
+        raise RuntimeError("script: off the in-memory bundle()")
+    if report_diffs:
+        raise RuntimeError("script: the report differs from the in-memory "
+                           "one")
+    missing = [f"{nm} in {key}" for key, c in (("the bundle", seen["f64"]),
+                                               ("the outputs", out_f64))
+               for nm, n in c.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"script: kernels not launched in f64: {missing}")
+    return {"times": times, "bitwise": bitwise, "x_rel": x_rel,
+            "fields": fields}
+
+
 def main():
+    import tempfile
+
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    from port_script_folder import POSEGRAPH_SCRIPT_OPS, image_major, \
+        write_script_folder
+
     from dbat_tpu_torch import build
     from dbat_tpu_torch.solve.bundle import BundleInfo, bundle
     from dbat_tpu_torch.solve.covariance import Covariance
     from dbat_tpu_torch.solve.fused import fused_gna
     from dbat_tpu_torch.solve.kernels import KERNELS
+    from dbat_tpu_torch.pipeline.script import run_script
     from dbat_tpu_torch.pipeline.synthetic import C5_RING
     from dbat_tpu_torch.solve.schur import SchurOps
 
@@ -665,6 +824,26 @@ def main():
         f"{pcg_err:.3e} (tol 1e-6)")
     if not (pcg_rel < 1e-10 and pcg_err <= 1e-6):
         raise RuntimeError("small pcg_solve: off the direct solve")
+    # A DBAT script on the small network, one folder, card and CPU.
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = write_script_folder(image_major(net(SMALL, 6)[0]), tmp,
+                                  POSEGRAPH_SCRIPT_OPS)
+        runs = {where: run_script(xml, device=where,
+                                  output_dir=os.path.join(tmp, where))
+                for where in ("cuda", "cpu")}
+    sc_card, sc_cpu = runs["cuda"], runs["cpu"]
+    sx_card = np.asarray(sc_card.info.final_x)
+    sx_cpu = np.asarray(sc_cpu.info.final_x)
+    sx_err = float(np.abs(sx_card - sx_cpu).max() / np.abs(sx_cpu).max())
+    log(f"small DBAT script (pose_graph_init, prune_by_reprojection, "
+        f"bundle) on {card}: card (ok, iters, sigma0) ({sc_card.ok}, "
+        f"{sc_card.iters}, {sc_card.sigma0!r}), CPU ({sc_cpu.ok}, "
+        f"{sc_cpu.iters}, {sc_cpu.sigma0!r}); max |x_card - x_cpu| / max "
+        f"|x_cpu| {sx_err:.3e} (tol 1e-9); files {len(sc_card.outputs)}")
+    if not (sc_card.ok and sc_cpu.ok and sc_card.iters == sc_cpu.iters
+            and abs(sc_card.sigma0 / sc_cpu.sigma0 - 1) <= 1e-9
+            and sx_err <= 1e-9 and len(sc_card.outputs) == 4):
+        raise RuntimeError("small DBAT script: card and CPU disagree")
     phase_done("small reference", t, card)
 
     # 6. Main path ----------------------------------------------------------
@@ -813,6 +992,11 @@ def main():
     cov_out = covariance_phase(floor, card, launches)
     phase_done("covariance", t, card)
 
+    # 11. The DBAT script runner at the C5 shape ------------------------------
+    t = time.perf_counter()
+    script_out = script_phase(card, launches)
+    phase_done("script", t, card)
+
     # Kernel summary: device times per C5 outer iteration (the five
     # kernel-A calls and the one kernel-B call of one assembly + S
     # build, f32), launches summed over every path in launches_by_path.
@@ -848,6 +1032,7 @@ def main():
     log_rows(c5_64_rows, "C5 f64, the covariance's shapes (one assembly + "
              "solve)", card)
     log(f"covariance at the C5 shape, f32, on {card}: {cov_out}")
+    log(f"DBAT script at the C5 shape, f64, on {card}: {script_out}")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -1,1 +1,2 @@
-"""Data model and x-vector layout (counterpart of dbat_tpu/core)."""
+"""Data model, x-vector layout and project comparison (counterpart of
+dbat_tpu/core)."""

@@ -11,11 +11,19 @@ one_thread: an autouse module fixture (import it into a test module)
 that runs the port's CPU work there on one thread.  Under pytest-xdist
 every worker's default thread pool spans all cores, and the many small
 operations of a port solve then wait on one another: several times
-slower than on one thread when the cores are busy."""
+slower than on one thread when the cores are busy.
+
+same_fields(): two objects of either package (dataclasses such as
+CtrlPts, EoTable or CameraSpec) held equal field by field, exactly.
+
+The DBAT script folder that the script tests run (write_script_folder
+and its operations) lives in port_script_folder.py, which imports no
+JAX, so that chip_smoke.py's script phases use the same writer."""
 
 import dataclasses
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,3 +70,22 @@ def jax_solved():
     read them, do not change them)."""
     start, pj, ij = _solved()
     return port_project(start), pj, ij
+
+
+def same_fields(a, b):
+    """Assert dataclass objects a (port) and b (JAX package) equal field
+    by field: arrays of the same shape, dtype kind and values (NaN equal
+    to NaN), everything else by ==."""
+    names = [f.name for f in dataclasses.fields(b)]
+    assert [f.name for f in dataclasses.fields(a)] == names
+    for name in names:
+        va, vb = getattr(a, name), getattr(b, name)
+        if isinstance(vb, np.ndarray):
+            assert isinstance(va, np.ndarray), name
+            assert va.shape == vb.shape, name
+            assert va.dtype.kind == vb.dtype.kind, name
+            np.testing.assert_array_equal(va, vb, err_msg=name)
+        elif isinstance(vb, float) and np.isnan(vb):
+            assert isinstance(va, float) and np.isnan(va), name
+        else:
+            assert va == vb, name

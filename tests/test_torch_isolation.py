@@ -1,7 +1,9 @@
-"""The port stands alone: no module of dbat_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package; the kernels are built
-from plain-C-interface sources without PyTorch's extension machinery;
-entry points never fall back to the CPU on their own."""
+"""The port stands alone: no module of dbat_tpu_torch, and neither
+chip_smoke.py nor the script-folder writer it imports
+(tests/port_script_folder.py), imports JAX or the JAX package; the
+kernels are built from plain-C-interface sources without PyTorch's
+extension machinery; entry points never fall back to the CPU on their
+own."""
 
 import ast
 import os
@@ -23,11 +25,18 @@ PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
                 "solve/ops.py", "solve/schur.py", "solve/segsum.py",
                 "solve/quality.py", "solve/pcg.py", "solve/covariance.py",
                 "geometry/__init__.py", "geometry/initvals.py",
-                "geometry/quality.py", "io/__init__.py", "io/report.py")
+                "geometry/quality.py", "io/__init__.py", "io/report.py",
+                "io/cpt.py", "io/tables.py", "io/eotable.py",
+                "io/writers.py", "io/stats.py", "io/report_compare.py",
+                "pipeline/camera_spec.py", "pipeline/project_build.py",
+                "pipeline/script.py", "core/project.py", "core/compare.py",
+                "geometry/align.py", "geometry/essential.py",
+                "geometry/posegraph.py")
 
 
 def _port_python_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "port_script_folder.py"]
     assert len(files) > 10
     return files
 
@@ -119,3 +128,18 @@ def test_bundle_without_device_raises_without_a_card(monkeypatch):
         bundle(t)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bundle(t, dtype=torch.float32, backend="schur", device="cuda")
+
+
+def test_run_script_without_device_raises_without_a_card(monkeypatch,
+                                                         tmp_path):
+    """run_script() runs its bundle on the card unless the caller asks
+    for the CPU; it raises before it reads any input."""
+    from dbat_tpu_torch.pipeline.script import run_script
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "no-such-script.xml")
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_script(missing, **kw)
+    with pytest.raises(FileNotFoundError):
+        run_script(missing, device="cpu")
