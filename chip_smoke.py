@@ -11,11 +11,14 @@ Phases, each printing its elapsed seconds as it ends:
      196,715 observations, 8 self-calibrated IO parameters) and its
      SchurOps in float32 on the card; the roma watchdog network (353
      cameras, 26,321 points, 90,561 observations, fixed IO: nb = 6) and
-     its SchurOps in float32 and float64;
+     its SchurOps in float32 and float64; the C5 network with fixed IO
+     written as a PhotoScan .psz (write_psz, a local->global
+     similarity) and read back (load_psz, psz_to_pm, from_pm), and its
+     SchurOps in float32 (nb = 6);
   4. kernel checks: every kernel on the inputs the main paths give it
      (C5 f32; roma f32 and f64, the watchdog's and the polish's shapes;
-     C5 f64, the covariance's; a small network in f64), against its
-     plain PyTorch version, with
+     C5 f64, the covariance's; the loaded .psz, C5 f32 at nb 6; a small
+     network in f64), against its plain PyTorch version, with
      its device time with the L2 flushed (held against its HBM bound)
      and in a burst of launches (operands warm in L2), the time of one
      call with the wrapper's host work, the host microseconds per call,
@@ -55,16 +58,31 @@ Phases, each printing its elapsed seconds as it ends:
      SCRIPT_ONLY_FIELDS, the in-memory bundle(gna, float64, auto) with
      the same iterations and sigma0 and x within 1e-12 relative, and
      the report equal to the in-memory one outside VOLATILE_REPORT_KEYS
-     (compare_reports).
+     (compare_reports);
+ 12. the PhotoModeler and PhotoScan input at the C5 shape: (a) the .psz
+     of phase 3 held to tests/test_psz_fullscale.py's gates (camera,
+     point and mark counts, fixed IO, every EO estimated, reprojection
+     residuals at the loaded values: median < 0.25 px, max < 10 px),
+     then bundle(gna, float32, schur, max_iter=6, conv_tol=1.02
+     sqrt(dof), abs_term) on the card: ok and sigma0 < 1.05, both
+     kernels launched in f32; (b) the C5 network as a PhotoModeler text
+     export (write_pm_export of tests/port_pm_export.py), load_pm,
+     from_pm, the 8-parameter self-calibration, bundle(gna, float64,
+     auto) on the card: ok and sigma0 < 1.05, both kernels launched in
+     f64; (c) ps_postproc (with ray and angle filtering) and camcal on
+     small networks, card against CPU: the same iterations, sigma0 and
+     x within 1e-9 relative; (d) the host's native helpers built
+     (have_native) and equal to their numpy formulas (NATIVE_TOL).
 Phase 5 also holds the small network's f64 covariance on the card to
 the CPU's (COV_SMALL_TOL), f64 PCG on the card to the direct solve, and
 a DBAT script on the small network (POSEGRAPH_SCRIPT_OPS: pose-graph
 initialisation, outlier screen, bundle) run from one folder on the card
 and on the CPU to 1e-9 in sigma0 and x.
-Phases 6, 8, 9, 10 and 11 each zero the launch counts just before and
-read them just after; every kernel must have launched in each (in f64
-in 9; in 10 both in the bundle and in the covariance after it; in 11
-in f64, both in the bundle and in the output files' covariances).
+Phases 6, 8, 9, 10, 11 and 12 each zero the launch counts just before
+and read them just after; every kernel must have launched in each (in
+f64 in 9; in 10 both in the bundle and in the covariance after it; in
+11 in f64, both in the bundle and in the output files' covariances; in
+12 in f32 in (a) and in f64 in (b)).
 
 Exits nonzero, printing no result, without a CUDA card or when any
 phase fails.  The last three lines are the kernels JSON, the card's
@@ -110,6 +128,12 @@ COV_SMALL_TOL = 1e-9
 #: each block's largest entry (copf scatters W and multiplies by V^-1
 #: after the sum, cop folds V^-1 into each ray first).
 COPF_REL_TOL = 1e-8
+#: The host's native helpers against their numpy formulas, over each
+#: result's largest entry (sums in another order).
+NATIVE_TOL = 1e-12
+#: The filter of ps_postproc card vs CPU (phase 12 (c)), on
+#: tests/port_pm_export.py's SMALL_PSZ.
+PSZ_FILTER = dict(min_rays=4, min_angle=10.0)
 #: C5: posterior std of every estimated parameter from the f32 bundle's
 #: f64 extraction, in the solve's centred frame, against an
 #: f64 extraction of the same solution in the world frame, relative:
@@ -657,6 +681,221 @@ def script_phase(card, launches):
             "fields": fields}
 
 
+def c5_fixed_io():
+    """tests/test_psz_fullscale.py's network: C5_RING with fixed IO."""
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING
+
+    return {k: v for k, v in C5_RING.items() if k != "est_io_cols"}
+
+
+def load_c5_psz():
+    """The C5 network with fixed IO written as a .psz and read back
+    through load_psz, psz_to_pm and from_pm (distortion model 3, which
+    the network was made under).  The tie points' accuracy is written as
+    the network's 0.1 px (the JAX test writes write_psz's default of 1
+    px, under which the loaded values already sit ten times below the
+    noise floor), so the bundle's sigma0 gate tests a solve.  Returns
+    (network, PszProject, loaded project, {stage: host seconds})."""
+    import tempfile
+
+    from port_pm_export import similarity
+
+    from dbat_tpu_torch.core.project import from_pm
+    from dbat_tpu_torch.io.psz import load_psz, psz_to_pm, write_psz
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING, make_ring_network
+
+    times = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t1
+        return out
+
+    s = timed("psz network", lambda: make_ring_network(**c5_fixed_io()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "c5_synthetic.psz")
+        timed("write_psz", lambda: write_psz(
+            path, s, tie_acc_px=C5_RING["ip_std_px"], L2G=similarity()))
+        times["psz MB"] = os.path.getsize(path) / 1e6
+        psz = timed("load_psz", lambda: load_psz(path))
+    r = timed("psz_to_pm + from_pm", lambda: from_pm(psz_to_pm(psz)))
+    r.dist_model = 3
+    return s, psz, r, times
+
+
+def input_phase(card, launches, c5_psz):
+    """Phase 12: the PhotoModeler and PhotoScan input at the C5 shape
+    ((a) the .psz loaded in phase 3, (b) a PM export), the demos card vs
+    CPU on small networks (c), the native helpers (d).  Raises on a
+    failed gate; returns the stage times and the numbers it checked."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from port_pm_export import SMALL_PSZ, camcal_network, numpy_native, \
+        similarity, write_camcal_folder, write_pm_export
+
+    from dbat_tpu_torch.core.project import from_pm
+    from dbat_tpu_torch.core.serial import build_serial
+    from dbat_tpu_torch.geometry.quality import reprojection_residuals_px
+    from dbat_tpu_torch.io import native
+    from dbat_tpu_torch.io.pm import load_pm
+    from dbat_tpu_torch.io.psz import write_psz
+    from dbat_tpu_torch.pipeline.demos import camcal, ps_postproc
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING, make_ring_network
+    from dbat_tpu_torch.solve.bundle import bundle
+
+    s, psz, r, times = c5_psz
+    by_dtype = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t1
+        return out
+
+    # (a) The .psz: tests/test_psz_fullscale.py's gates, then the bundle.
+    counts = (len(psz.camera_ids), len(psz.obj_pts),
+              len(psz.obj_marks) + len(psz.ctrl_marks))
+    spec = timed("psz build_serial", lambda: build_serial(r))
+    res = timed("psz residuals", lambda: reprojection_residuals_px(r))
+    dof = 2 * r.n_obs - spec.n_x
+    log(f"input phase on {card}: (a) the C5 .psz ({times['psz MB']:.1f} MB): "
+        f"cameras, tie points, marks {counts} (network {s.n_img}, "
+        f"{s.n_op - 8}, {s.n_obs}); n_io {spec.n_io}, n_eo {spec.n_eo}, "
+        f"n_x {spec.n_x}; reprojection residuals at the loaded values "
+        f"median {np.median(res):.4f} px, max {res.max():.4f} px (gates "
+        f"0.25, 10)")
+    if counts != (s.n_img, s.n_op - 8, s.n_obs):
+        raise RuntimeError(f"input: the .psz lost cameras, points or marks: "
+                           f"{counts}")
+    if not (spec.n_io == 0 and spec.n_eo == 6 * r.n_img and len(res)
+            == s.n_obs and np.median(res) < 0.25 and res.max() < 10.0):
+        raise RuntimeError("input: the loaded .psz fails the JAX test's "
+                           "gates")
+    reset_counts()
+    (_p, ok_a, it_a, s0_a, info_a) = timed("psz bundle", lambda: bundle(
+        r, damping="gna", dtype=torch.float32, backend="schur", max_iter=6,
+        conv_tol=1.02 * np.sqrt(dof), abs_term=True, device="cuda"))
+    launch_a = read_counts()
+    by_dtype["float32"] = read_counts(torch.float32)
+    log(f"  bundle(gna, f32, schur, max_iter 6, conv_tol 1.02 floor, "
+        f"abs_term) on the card: ok {ok_a}, code {info_a.code}, {it_a} "
+        f"iterations, sigma0 {s0_a!r}, nb {info_a.ops.n_cb}, "
+        f"{times['psz bundle']:.3f} s; launches {launch_a}, of them f32 "
+        f"{by_dtype['float32']}")
+    if not (ok_a and s0_a < 1.05 and info_a.ops.n_cb == 6):
+        raise RuntimeError("input: the .psz bundle failed its gate")
+
+    # (b) The C5 network as a PhotoModeler text export, self-calibrating.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "c5-pmexport.txt")
+        pm_net = timed("pm network", lambda: make_ring_network(**C5_RING))
+        timed("write_pm_export", lambda: write_pm_export(path, pm_net))
+        times["pm MB"] = os.path.getsize(path) / 1e6
+        prob = timed("load_pm", lambda: load_pm(path))
+    m = timed("from_pm", lambda: from_pm(prob))
+    m.dist_model = 3
+    m.set_cam_est("cc", "px", "py", "K1", "K2", "K3", "P1", "P2")
+    if (m.n_img, m.n_op, m.n_obs) != (pm_net.n_img, pm_net.n_op,
+                                      pm_net.n_obs):
+        raise RuntimeError("input: the PM export lost images, points or "
+                           "marks")
+    reset_counts()
+    (_p, ok_b, it_b, s0_b, info_b) = timed("pm bundle", lambda: bundle(
+        m, damping="gna", dtype=torch.float64, backend="auto",
+        device="cuda"))
+    launch_b = read_counts()
+    by_dtype["float64"] = read_counts(torch.float64)
+    log(f"  (b) the C5 PM export ({times['pm MB']:.1f} MB): bundle(gna, "
+        f"f64, auto) on the card with cc px py K1 K2 K3 P1 P2: ok {ok_b}, "
+        f"code {info_b.code}, {it_b} iterations, sigma0 {s0_b!r}, backend "
+        f"{type(info_b.ops).__name__} nb {getattr(info_b.ops, 'n_cb', None)}"
+        f", {times['pm bundle']:.3f} s; launches {launch_b}, of them f64 "
+        f"{by_dtype['float64']}")
+    if not (ok_b and s0_b < 1.05):
+        raise RuntimeError("input: the PM export's bundle failed its gate")
+    launches["input"] = {k: launch_a[k] + launch_b[k] for k in launch_a}
+    missing = [f"{nm} in {dt}" for dt, c in by_dtype.items()
+               for nm, n in c.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"input: kernels not launched: {missing}")
+
+    # (c) The demos on small networks, card against CPU.
+    demo_err = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        small = os.path.join(tmp, "small.psz")
+        write_psz(small, make_ring_network(**SMALL_PSZ), L2G=similarity())
+        data_dir = os.path.join(tmp, "camcal")
+        prob_path = write_camcal_folder(data_dir, camcal_network())
+        demos = {
+            "ps_postproc": lambda dev: ps_postproc(
+                file_name=small, stats_dir=tmp, device=dev, **PSZ_FILTER),
+            "camcal": lambda dev: camcal(prob=load_pm(prob_path),
+                                         data_dir=data_dir, device=dev)}
+        for name, run in demos.items():
+            out = {dev: run(dev) for dev in ("cuda", "cpu")}
+            (_pc, ok_c, it_c, s0_c, ic), (_pp, ok_h, it_h, s0_h, ih) = (
+                out["cuda"], out["cpu"])
+            xc, xh = np.asarray(ic.final_x), np.asarray(ih.final_x)
+            demo_err[name] = (abs(s0_c / s0_h - 1),
+                              float(np.abs(xc - xh).max()
+                                    / np.abs(xh).max()))
+            log(f"  (c) {name} on small networks: card (ok, iters, sigma0) "
+                f"({ok_c}, {it_c}, {s0_c!r}), CPU ({ok_h}, {it_h}, "
+                f"{s0_h!r}); relative sigma0 and x differences "
+                f"{demo_err[name]} (tol 1e-9)")
+            if not (ok_c and ok_h and it_c == it_h
+                    and max(demo_err[name]) <= 1e-9):
+                raise RuntimeError(f"input: {name} card and CPU disagree")
+
+    # (d) The host's native helpers.
+    t1 = time.perf_counter()
+    have = native.have_native()
+    rng = np.random.default_rng(12)
+    k, nblk, n = 40, 30, 3
+    A = rng.standard_normal((k, k))
+    A = A @ A.T
+    B = rng.standard_normal((k, nblk * n))
+    M3 = rng.standard_normal((5000, 3, 3)) + 3 * np.eye(3)
+    Vinv = np.linalg.inv(M3[:nblk])
+    Y = rng.standard_normal((k, 3 * nblk))
+    want = numpy_native(A, B, n, M3, Vinv, Y, 0.8)
+    got = {"diag_block_outer": native.diag_block_outer(A, B, n),
+           "batch_inv3": native.batch_inv3(M3),
+           "icpc_blocks": native.icpc_blocks(Vinv, Y, 0.8)}
+    native_err = {nm: float(np.abs(got[nm] - want[nm]).max()
+                            / np.abs(want[nm]).max()) for nm in want}
+    rows = rng.standard_normal((2000, 4)) * 10.0 ** rng.integers(-3, 6,
+                                                               (2000, 4))
+    with tempfile.TemporaryDirectory() as tmp:
+        tbl = os.path.join(tmp, "table.txt")
+        with open(tbl, "w") as fh:
+            fh.write("# x,y,z,w\n")
+            fh.writelines(",".join(repr(float(v)) for v in row) + "\n"
+                          for row in rows)
+        parsed = native.parse_numeric_table(tbl, 4)
+        table_equal = bool(np.array_equal(parsed, rows) and np.array_equal(
+            parsed, np.atleast_2d(np.genfromtxt(tbl, delimiter=","))))
+    times["native"] = time.perf_counter() - t1
+    log(f"  (d) native helpers: have_native {have}; relative differences "
+        f"from the numpy formulas {native_err} (tol {NATIVE_TOL:g}); "
+        f"parse_numeric_table equal to the written rows and to genfromtxt: "
+        f"{table_equal}; {times['native']:.3f} s")
+    if not (have and table_equal
+            and all(v <= NATIVE_TOL for v in native_err.values())):
+        raise RuntimeError("input: the native helpers are missing or wrong")
+    log(f"  stage seconds on the host of {card}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()
+                    if not k.endswith("MB")))
+    return {"times": times, "psz": (ok_a, it_a, s0_a),
+            "pm": (ok_b, it_b, s0_b), "demo_err": demo_err,
+            "native_err": native_err, "by_dtype": by_dtype}
+
+
 def main():
     import tempfile
 
@@ -672,6 +911,7 @@ def main():
         write_script_folder
 
     from dbat_tpu_torch import build
+    from dbat_tpu_torch.core.serial import build_serial
     from dbat_tpu_torch.solve.bundle import BundleInfo, bundle
     from dbat_tpu_torch.solve.covariance import Covariance
     from dbat_tpu_torch.solve.fused import fused_gna
@@ -734,6 +974,18 @@ def main():
         f"f32 SchurOps {roma_ops_s:.2f} s on the host of {card}")
     if roma32.n_cb != 6:
         raise RuntimeError(f"roma network: nb {roma32.n_cb}, expected 6")
+    c5_psz = load_c5_psz()
+    psz_r = c5_psz[2]
+    psz_ops = SchurOps(psz_r, build_serial(psz_r), dtype=torch.float32,
+                       device="cuda")
+    log(f"C5 .psz (fixed IO): n_img={psz_r.n_img} n_pt={psz_r.n_op} "
+        f"n_obs={psz_ops.n_obs} n_x={psz_ops.n_x} nb={psz_ops.n_cb} "
+        f"pairs={psz_ops.n_pairs} camera pairs={psz_ops.n_campair}; "
+        f"kernel B chunks {psz_ops._pair_plan.n_chunks}; host seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in c5_psz[3].items()
+                    if not k.endswith("MB")) + f" on the host of {card}")
+    if psz_ops.n_cb != 6:
+        raise RuntimeError(f".psz network: nb {psz_ops.n_cb}, expected 6")
     phase_done("setup", t, card)
 
     # 4. Kernel checks ------------------------------------------------------
@@ -754,6 +1006,9 @@ def main():
     c5_64 = SchurOps(s, spec, dtype=torch.float64, device="cuda")
     c5_64_rows = check_kernels(c5_64, "float64", timed=True)
     del c5_64
+    # The loaded .psz: both kernels at the C5 shape with fixed IO, f32.
+    psz_rows = check_kernels(psz_ops, "float32", timed=True)
+    del psz_ops
     s_small, spec_small = net(SMALL, 6)
     ops_small = SchurOps(s_small, spec_small, dtype=torch.float64,
                          device="cuda")
@@ -997,6 +1252,11 @@ def main():
     script_out = script_phase(card, launches)
     phase_done("script", t, card)
 
+    # 12. The PhotoModeler and PhotoScan input at the C5 shape -------------
+    t = time.perf_counter()
+    input_out = input_phase(card, launches, c5_psz)
+    phase_done("input", t, card)
+
     # Kernel summary: device times per C5 outer iteration (the five
     # kernel-A calls and the one kernel-B call of one assembly + S
     # build, f32), launches summed over every path in launches_by_path.
@@ -1014,6 +1274,8 @@ def main():
             "replaces": k.replaces,
             "launches": sum(c[k.name] for c in launches.values()),
             "launches_by_path": {p: c[k.name] for p, c in launches.items()},
+            "input_launches_by_dtype": {
+                dt: c[k.name] for dt, c in input_out["by_dtype"].items()},
             "max_abs_err": max(row["max_abs_err"] for row in rs),
             "ms": sum(row["ms"] for row in rs),
             "warm_ms": sum(row["warm_ms"] for row in rs),
@@ -1031,8 +1293,12 @@ def main():
              "assembly + solve)", card)
     log_rows(c5_64_rows, "C5 f64, the covariance's shapes (one assembly + "
              "solve)", card)
+    log_rows(psz_rows, "C5 f32, nb 6, the loaded .psz (one assembly + "
+             "solve)", card)
     log(f"covariance at the C5 shape, f32, on {card}: {cov_out}")
     log(f"DBAT script at the C5 shape, f64, on {card}: {script_out}")
+    log(f"PhotoModeler and PhotoScan input at the C5 shape on {card}: "
+        f"{input_out}")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -2,9 +2,11 @@
 
 A plain dataclass of numpy arrays: parameter state (io, eo, op), index
 structure, estimation masks, priors and metadata, with the setters of
-the reference's misc/ layer that the script operations call, and
+the reference's misc/ layer that the script operations call,
+`from_pm` (a PhotoModeler or PhotoScan problem -> Project) and
 `prune_network`.  The solvers push the parameter state to the device
-themselves.
+themselves; `Project.params()` gives it as `Params`, tensors on an
+explicit device, and `set_params()` takes it back.
 
 Layouts (as in the JAX package):
   io: (n_img, NC) with NC = 5+nK+nP: [cc, px, py, aspect, skew, K.., P..]
@@ -23,8 +25,21 @@ import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..io.pm import PmProject
 
 N_LIN = 5  # cc, px, py, aspect, skew
+
+
+@dataclass
+class Params:
+    """The parameter state as tensors on one device."""
+
+    io: torch.Tensor  # (n_img, NC)
+    eo: torch.Tensor  # (n_img, 6)
+    op: torch.Tensor  # (n_op, 3)
 
 
 @dataclass
@@ -109,6 +124,17 @@ class Project:
     @property
     def NC(self) -> int:
         return N_LIN + self.nK + self.nP
+
+    def params(self, device=None) -> Params:
+        """The parameter state as tensors on `device` (default the card;
+        see device.py)."""
+        dev = resolve_device(device)
+        return Params(*(torch.as_tensor(a, device=dev)
+                        for a in (self.io, self.eo, self.op)))
+
+    def set_params(self, p: Params) -> None:
+        self.io, self.eo, self.op = (t.detach().cpu().numpy().copy()
+                                     for t in (p.io, p.eo, p.op))
 
     def copy(self) -> "Project":
         out = dataclasses.replace(self)
@@ -312,6 +338,194 @@ class Project:
         else:
             self.prior_op_use[i] = False
             self.est_op[i] = True
+
+
+def from_pm(prob: PmProject, individual_cameras: bool = False) -> Project:
+    """PhotoModeler prob -> Project (ref code/misc/prob2dbatstruct.m).
+
+    Sign conventions applied here (prob2dbatstruct.m:226-237): principal
+    point y is negated (image y-flip) and the PM K/P coefficients are
+    negated (PhotoModeler stores the inverse correction).
+    """
+    n_img = len(prob.images)
+    nK, nP = 3, 2
+    NC = N_LIN + nK + nP
+
+    if individual_cameras:
+        inner = np.stack([im.inner for im in prob.images])  # (n_img,10)
+        inner_std = np.stack([im.inner_std for im in prob.images])
+        im_sz = np.stack([im.im_size for im in prob.images])
+        io_block = np.tile(np.arange(1, n_img + 1)[:, None], (1, NC))
+    else:
+        inner = np.tile(prob.def_cam, (n_img, 1))
+        inner_std = np.tile(prob.def_cam_std, (n_img, 1))
+        im_sz = np.tile(prob.im_size, (n_img, 1))
+        io_block = np.ones((n_img, NC), dtype=int)
+
+    io = np.full((n_img, NC), np.nan)
+    io_std = np.full((n_img, NC), np.nan)
+    io[:, 0] = inner[:, 0]  # cc
+    io[:, 1] = inner[:, 1]  # px
+    io[:, 2] = -inner[:, 2]  # py (y-flip)
+    io_std[:, 0:3] = inner_std[:, 0:3]
+    io[:, N_LIN:N_LIN + nK] = -inner[:, 5:5 + nK]
+    io[:, N_LIN + nK:] = -inner[:, 5 + nK:5 + nK + nP]
+    io_std[:, N_LIN:] = inner_std[:, 5:5 + nK + nP]
+
+    sensor_size = inner[:, 3:5]  # [xs, ys]
+    px_size = sensor_size / im_sz
+    aspect = 1.0 - px_size[:, 0] / px_size[:, 1]
+    px_size = np.stack([px_size[:, 1], px_size[:, 1]], axis=1)
+    io[:, 3] = aspect
+    io[:, 4] = 0.0  # skew
+
+    # EO: PM stores angles as kappa, phi, omega in degrees.
+    eo = np.full((n_img, 6), np.nan)
+    eo_std = np.full((n_img, 6), np.nan)
+    outer = np.stack([im.outer for im in prob.images])
+    outer_std = np.stack([im.outer_std for im in prob.images])
+    eo[:, 0:3] = outer[:, 0:3]
+    eo_std[:, 0:3] = outer_std[:, 0:3]
+    eo[:, 3:6] = outer[:, [5, 4, 3]] * np.pi / 180.0
+    eo_std[:, 3:6] = outer_std[:, [5, 4, 3]] * np.pi / 180.0
+    eo_block = np.tile(np.arange(1, n_img + 1)[:, None], (1, 6))
+
+    # Object points: union of ctrl+obj ids, ascending.
+    all_ids = np.union1d(
+        prob.ctrl_pts[:, 0].astype(np.int64) if prob.ctrl_pts.size else [],
+        prob.obj_pts[:, 0].astype(np.int64) if prob.obj_pts.size else [],
+    ).astype(np.int64)
+    n_op = all_ids.size
+    op = np.full((n_op, 3), np.nan)
+    prior_op_val = np.full((n_op, 3), np.nan)
+    prior_op_std = np.full((n_op, 3), np.nan)
+
+    obj_ids = prob.obj_pts[:, 0].astype(np.int64)
+    idx = np.searchsorted(all_ids, obj_ids)
+    op[idx] = prob.obj_pts[:, 1:4]
+
+    ctrl_ids = prob.ctrl_pts[:, 0].astype(np.int64)
+    is_ctrl = np.isin(all_ids, ctrl_ids)
+    cidx = np.searchsorted(all_ids, ctrl_ids)
+    prior_op_val[cidx] = prob.ctrl_pts[:, 1:4]
+    prior_op_std[cidx] = prob.ctrl_pts[:, 4:7]
+
+    check_ids = prob.check_pts[:, 0].astype(np.int64) if prob.check_pts.size else []
+    is_check = np.isin(all_ids, check_ids)
+
+    # Observations, per image sorted by id (prob2dbatstruct.m:349-365).
+    obs_img, obs_pt, ip_px, ip_std, ip_id = [], [], [], [], []
+    mp = prob.mark_pts
+    for i in range(n_img):
+        rows = mp[mp[:, 0] == i]
+        rows = rows[np.argsort(rows[:, 1], kind="stable")]
+        valid = np.isin(rows[:, 1].astype(np.int64), all_ids)
+        rows = rows[valid]
+        obs_img.append(np.full(len(rows), i, dtype=np.int32))
+        obs_pt.append(
+            np.searchsorted(all_ids, rows[:, 1].astype(np.int64)).astype(np.int32)
+        )
+        ip_px.append(rows[:, 2:4])
+        ip_std.append(rows[:, 4:6])
+        ip_id.append(rows[:, 1].astype(np.int64))
+    obs_img = np.concatenate(obs_img)
+    obs_pt = np.concatenate(obs_pt)
+    ip_px = np.concatenate(ip_px, axis=0)
+    ip_std = np.concatenate(ip_std, axis=0)
+    ip_id = np.concatenate(ip_id)
+
+    sigmas = np.unique(ip_std)
+    if np.any(sigmas == 0):
+        # Ref prob2dbatstruct.m:367-374
+        sigmas = np.array([1.0])
+        ip_std = np.ones_like(ip_std)
+
+    # Estimation defaults (prob2dbatstruct.m:380-390).
+    est_io = np.zeros((n_img, NC), dtype=bool)
+    prior_io_use = np.zeros((n_img, NC), dtype=bool)
+    est_eo = np.ones((n_img, 6), dtype=bool)
+    prior_eo_use = np.zeros((n_img, 6), dtype=bool)
+    with np.errstate(invalid="ignore"):
+        est_op = ~(prior_op_std == 0)
+    use_op = np.tile(
+        (is_ctrl & ~np.all(prior_op_std == 0, axis=1))[:, None], (1, 3)
+    )
+
+    # Labels: control points labelled by id (loadpm.m:380-382), or by
+    # the source's label table when provided (PSZ markers).
+    op_labels = ["" for _ in range(n_op)]
+    for k in np.flatnonzero(is_ctrl | is_check):
+        op_labels[k] = str(all_ids[k])
+    if getattr(prob, "op_labels_by_id", None):
+        for k, oid in enumerate(all_ids):
+            lbl = prob.op_labels_by_id.get(int(oid))
+            if lbl:
+                op_labels[k] = lbl
+
+    # Prior camera positions (prob2dbatstruct.m:466-472).
+    pcp = getattr(prob, "prior_cam_pos", None)
+    if pcp is not None and len(pcp):
+        cam_id_arr = np.array([im.id for im in prob.images])
+        common, ia, ib = np.intersect1d(
+            cam_id_arr, pcp[:, 0].astype(int), return_indices=True
+        )
+        # applied below after prior arrays are built
+
+    import os.path as osp
+
+    names = [im.name for im in prob.images]
+    im_dir = osp.dirname(osp.commonprefix(names)) if names else ""
+    labels = [n[len(im_dir) + 1:] if im_dir else n for n in names]
+
+    prior_eo_val = eo.copy()
+    prior_eo_std = eo_std
+    if pcp is not None and len(pcp) and len(ia):
+        prior_eo_val[ia, 0:3] = pcp[ib, 1:4]
+        prior_eo_std[ia, 0:3] = pcp[ib, 4:7]
+        prior_eo_use[ia, 0:3] = True
+
+    return Project(
+        io=io,
+        eo=eo,
+        op=op,
+        dist_model=1,
+        nK=nK,
+        nP=nP,
+        sensor_ss_size=sensor_size,
+        sensor_im_size=im_sz,
+        sensor_px_size=px_size,
+        io_block=io_block,
+        eo_block=eo_block,
+        est_io=est_io,
+        est_eo=est_eo,
+        est_op=est_op,
+        prior_io_val=io.copy(),
+        prior_io_std=io_std,
+        prior_io_use=prior_io_use,
+        prior_eo_val=prior_eo_val,
+        prior_eo_std=prior_eo_std,
+        prior_eo_use=prior_eo_use,
+        prior_op_val=prior_op_val,
+        prior_op_std=prior_op_std,
+        prior_op_use=use_op,
+        is_ctrl=is_ctrl,
+        is_check=is_check,
+        obs_img=obs_img,
+        obs_pt=obs_pt,
+        ip_px=ip_px,
+        ip_std_px=ip_std,
+        ip_id=ip_id,
+        ip_sigmas=sigmas,
+        op_id=all_ids,
+        op_raw_id=all_ids.copy(),
+        op_labels=op_labels,
+        img_names=names,
+        img_labels=labels,
+        img_ids=np.array([im.id for im in prob.images]),
+        title=prob.title,
+        file_name=prob.file_name,
+        im_dir=im_dir,
+    )
 
 
 def project_from_arrays(fields: dict) -> Project:

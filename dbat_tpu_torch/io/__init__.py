@@ -1,3 +1,5 @@
 """Input tables and result files (counterpart of dbat_tpu/io): the
-control-point, image and EO table loaders, the DBAT report, the EO,
-residual and statistics files, and the report comparison."""
+control-point, image and EO table loaders, the PhotoModeler export,
+tables and report, the PhotoScan .psz and lens .lnz projects, PLY, the
+DBAT report, the EO, residual and statistics files, the report
+comparison, and the host's native helpers."""

@@ -15,6 +15,9 @@ slower than on one thread when the cores are busy.
 
 same_fields(): two objects of either package (dataclasses such as
 CtrlPts, EoTable or CameraSpec) held equal field by field, exactly.
+same_data(): the same, recursively through dataclasses, lists, tuples
+and dicts (a PmProject with its PmImage list, a PszProject with its
+PszCamera).
 
 The DBAT script folder that the script tests run (write_script_folder
 and its operations) lives in port_script_folder.py, which imports no
@@ -89,3 +92,31 @@ def same_fields(a, b):
             assert isinstance(va, float) and np.isnan(va), name
         else:
             assert va == vb, name
+
+
+def same_data(a, b, where="value"):
+    """Assert a (port) and b (JAX package) equal exactly, recursing
+    through dataclasses (same field names), lists, tuples and dicts;
+    arrays of the same shape, dtype kind and values (NaN equal to NaN);
+    floats with NaN equal to NaN; everything else by ==."""
+    if dataclasses.is_dataclass(b):
+        names = [f.name for f in dataclasses.fields(b)]
+        assert [f.name for f in dataclasses.fields(a)] == names, where
+        for name in names:
+            same_data(getattr(a, name), getattr(b, name), f"{where}.{name}")
+    elif isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray), where
+        assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(b, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for k, (va, vb) in enumerate(zip(a, b)):
+            same_data(va, vb, f"{where}[{k}]")
+    elif isinstance(b, dict):
+        assert isinstance(a, dict) and list(a) == list(b), where
+        for k in b:
+            same_data(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(b, float) and np.isnan(b):
+        assert isinstance(a, float) and np.isnan(a), where
+    else:
+        assert type(a) is type(b) and a == b, where

@@ -1,9 +1,8 @@
 """The port stands alone: no module of dbat_tpu_torch, and neither
-chip_smoke.py nor the script-folder writer it imports
-(tests/port_script_folder.py), imports JAX or the JAX package; the
-kernels are built from plain-C-interface sources without PyTorch's
-extension machinery; entry points never fall back to the CPU on their
-own."""
+chip_smoke.py nor the writers it imports (tests/port_script_folder.py,
+tests/port_pm_export.py), imports JAX or the JAX package; the kernels
+are built from plain-C-interface sources without PyTorch's extension
+machinery; entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -31,12 +30,16 @@ PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
                 "pipeline/camera_spec.py", "pipeline/project_build.py",
                 "pipeline/script.py", "core/project.py", "core/compare.py",
                 "geometry/align.py", "geometry/essential.py",
-                "geometry/posegraph.py")
+                "geometry/posegraph.py", "io/pm.py", "io/ply.py",
+                "io/psz.py", "io/pmtables.py", "io/lnz.py", "io/native.py",
+                "core/checkpoint.py", "pipeline/demos.py",
+                "pipeline/run_all.py")
 
 
 def _port_python_files():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "port_script_folder.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "port_script_folder.py",
+        ROOT / "tests" / "port_pm_export.py"]
     assert len(files) > 10
     return files
 
@@ -45,6 +48,7 @@ def test_import_check_covers_the_bundle_slice():
     files = set(_port_python_files())
     for mod in PORT_MODULES:
         assert PORT / mod in files, mod
+    assert ROOT / "tests" / "port_pm_export.py" in files
 
 
 def _imported_modules(path):
@@ -70,7 +74,8 @@ def test_kernels_need_no_torch_extension_build():
         assert "cpp_extension" not in path.read_text(), path
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert len(sources) == 2
-    for src in sources:
+    # The host helpers' C++ source, built by g++, not nvcc.
+    for src in sources + [PORT / "csrc" / "dbat_native.cpp"]:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text, src
         assert 'extern "C"' in text
@@ -143,3 +148,31 @@ def test_run_script_without_device_raises_without_a_card(monkeypatch,
             run_script(missing, **kw)
     with pytest.raises(FileNotFoundError):
         run_script(missing, device="cpu")
+
+
+@pytest.mark.parametrize("demo", ["ps_postproc", "camcal"])
+def test_demos_without_device_raise_before_reading_input(monkeypatch,
+                                                        tmp_path, demo):
+    """ps_postproc() and camcal() run their bundle on the card unless the
+    caller asks for the CPU; without a card they raise before they read
+    any input (the missing file would raise FileNotFoundError)."""
+    from dbat_tpu_torch.pipeline import demos
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "no-such-input")
+    kw = ({"file_name": missing + ".psz"} if demo == "ps_postproc"
+          else {"data_dir": missing})
+    run = getattr(demos, demo)
+    for dev in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(**kw, **dev)
+    with pytest.raises(FileNotFoundError):
+        run(**kw, device="cpu")
+
+
+def test_run_all_defaults_to_the_card(monkeypatch, tmp_path):
+    from dbat_tpu_torch.pipeline import run_all
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_all.main(["--out", str(tmp_path)])

@@ -26,12 +26,21 @@ B sums up to 16 * (rows of a camera pair) * g products in another order
 than the plain version's gather-sum-segment_sum (f32 2e-5, f64 1e-12);
 in f32 it is held to the plain version evaluated in f64 on the same
 inputs, because over the ~1,000 pairs of a long camera pair the f32
-plain version's own rounding exceeds 2e-5."""
+plain version's own rounding exceeds 2e-5.
+
+At the C5 shape with fixed IO (nb 6, f32; a PhotoScan project loaded
+with its calibration fixed): kernel A's five products over the 196,715
+observations and kernel B over the network's 1,275,817 observation
+pairs, on inputs made from a seed: A at the tolerance above, B to 2e-5
+of its largest output (a camera pair there sums up to thousands of
+pairs, so its outputs are far from unit size)."""
 
 import numpy as np
 import pytest
 import torch
 
+from dbat_tpu_torch.core.serial import build_serial
+from dbat_tpu_torch.pipeline.synthetic import C5_RING, make_ring_network
 from dbat_tpu_torch.solve.flatsel import (
     FlatBilinear, abt_terms, ata_terms, atb_terms, matmul_terms,
 )
@@ -39,6 +48,7 @@ from dbat_tpu_torch.solve.kernels import (
     PAIR_BUCKET_MAX_NB, PairBucketPlan, fused_bilinear, fused_bilinear_plain,
     pair_bucket_acc, pair_bucket_acc_plain,
 )
+from dbat_tpu_torch.solve.schur import SchurOps
 
 SHAPES = [
     (abt_terms(7, 3, 7), 21, 21, 49),
@@ -165,6 +175,38 @@ def test_kernel_b_matches_plain(cap, dtype, _tol_a, tol_b, nb):
                                        device=dev))
     np.testing.assert_allclose(one.double().cpu().numpy(),
                                ref.cpu().numpy(), rtol=0, atol=tol_b)
+
+
+@pytest.mark.gpu
+def test_kernels_at_the_c5_fixed_io_shape():
+    dev = _card()
+    s = make_ring_network(**{k: v for k, v in C5_RING.items()
+                             if k != "est_io_cols"})
+    ops = SchurOps(s, build_serial(s), dtype=torch.float32, device=dev)
+    assert ops.n_cb == 6 and ops.n_pairs == 1275817
+    rng = np.random.default_rng(8)
+    n = ops.n_obs
+    tol_a, tol_b = DTYPES[0][1:]
+    for fb in (ops._fb_u, ops._fb_v, ops._fb_w, ops._fb_y, ops._fb_pair):
+        A = torch.as_tensor(rng.normal(size=(n, fb.d_a)),
+                            dtype=torch.float32, device=dev)
+        B = torch.as_tensor(rng.normal(size=(n, fb.d_b)),
+                            dtype=torch.float32, device=dev)
+        out = fb(A, B)
+        ref = fused_bilinear_plain(A, B, fb.table(dev), fb.d_out, fb.g)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=tol_a)
+    plan, fb = ops._pair_plan, ops._fb_pair
+    Y = torch.as_tensor(rng.normal(size=(n, fb.d_a)), dtype=torch.float32,
+                        device=dev)
+    n0 = pair_bucket_acc.launches
+    out = plan(Y, fb)
+    assert pair_bucket_acc.launches == n0 + 1
+    assert torch.equal(out, plan(Y, fb))
+    ref = pair_bucket_acc_plain(Y.double(), plan.i1, plan.i2, plan.row_ptr,
+                                fb.table(dev), fb.d_out, fb.g, plan.cap)
+    err = float((out.double() - ref).abs().max())
+    assert err <= tol_b * float(ref.abs().max())
 
 
 @pytest.mark.gpu

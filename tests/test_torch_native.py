@@ -1,0 +1,101 @@
+"""Port parity: the host's native helpers of dbat_tpu_torch (io/native.py
+over csrc/dbat_native.cpp, built at first use with the host C++
+compiler) against the numpy formulas of dbat_tpu/io/native.py and
+against the JAX package's module on the same inputs.
+
+Inputs are made from a seed.  Held: parse_numeric_table exactly (both
+read the text with strtod; the numpy fallback with genfromtxt);
+diag_block_outer, batch_inv3 and icpc_blocks to 1e-12 of the largest
+entry (sums in another order, and the JAX package's library may be
+built with other flags); the numpy fallback, taken where the library
+cannot be built, equal to the JAX package's fallback exactly."""
+
+import numpy as np
+import pytest
+
+from dbat_tpu.io import native as jnative
+from dbat_tpu_torch.io import native as tnative
+from port_pm_export import numpy_native
+
+TOL = 1e-12
+
+
+def _inputs():
+    rng = np.random.default_rng(3)
+    k, m, n = 7, 5, 3
+    A = rng.standard_normal((k, k))
+    A = A @ A.T
+    B = rng.standard_normal((k, m * n))
+    inv3 = rng.standard_normal((40, 3, 3)) + 3 * np.eye(3)
+    Vinv = np.linalg.inv(inv3[:m])
+    Y = rng.standard_normal((k, 3 * m))
+    return A, B, n, inv3, Vinv, Y
+
+
+def _close(a, b):
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= TOL * np.abs(b).max()
+
+
+def _table(tmp_path):
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((25, 4)) * 10.0 ** rng.integers(-3, 6,
+                                                               (25, 4))
+    path = tmp_path / "table.txt"
+    with open(path, "w") as fh:
+        fh.write("# id,x,y,z\n\n")
+        for r in rows:
+            fh.write(",".join(repr(float(v)) for v in r) + "\n")
+    return str(path), rows
+
+
+def test_the_library_builds_here():
+    assert tnative.have_native()
+    assert tnative._library_path().exists()
+
+
+def test_parse_numeric_table_matches_numpy_and_jax(tmp_path):
+    path, rows = _table(tmp_path)
+    got = tnative.parse_numeric_table(path, 4)
+    np.testing.assert_array_equal(got, rows)
+    np.testing.assert_array_equal(got, jnative.parse_numeric_table(path, 4))
+    np.testing.assert_array_equal(
+        got, np.atleast_2d(np.genfromtxt(path, delimiter=",")))
+    for mod in (tnative, jnative):  # a row wider than asked for
+        with pytest.raises(ValueError, match="code -2"):
+            mod.parse_numeric_table(path, 3)
+
+
+@pytest.mark.parametrize("name", ["diag_block_outer", "batch_inv3",
+                                  "icpc_blocks"])
+def test_block_helpers_match_numpy_and_jax(name):
+    A, B, n, inv3, Vinv, Y = _inputs()
+    s2 = 0.7
+    ref = numpy_native(A, B, n, inv3, Vinv, Y, s2)[name]
+    args = {"diag_block_outer": (A, B, n), "batch_inv3": (inv3,),
+            "icpc_blocks": (Vinv, Y, s2)}[name]
+    got = getattr(tnative, name)(*args)
+    _close(got, ref)
+    _close(got, getattr(jnative, name)(*args))
+
+
+def test_batch_inv3_raises_on_a_singular_block():
+    A = np.stack([np.eye(3), np.zeros((3, 3))])
+    with pytest.raises(np.linalg.LinAlgError, match="block 1"):
+        tnative.batch_inv3(A)
+
+
+def test_fallback_equals_the_jax_fallback(tmp_path, monkeypatch):
+    """Without the library both modules give the same numpy results."""
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    assert not tnative.have_native()
+    A, B, n, inv3, Vinv, Y = _inputs()
+    for name, args in (("diag_block_outer", (A, B, n)),
+                       ("batch_inv3", (inv3,)),
+                       ("icpc_blocks", (Vinv, Y, 0.7))):
+        np.testing.assert_array_equal(getattr(tnative, name)(*args),
+                                      getattr(jnative, name)(*args))
+    path, rows = _table(tmp_path)
+    np.testing.assert_array_equal(tnative.parse_numeric_table(path, 4),
+                                  jnative.parse_numeric_table(path, 4))
