@@ -72,17 +72,39 @@ Phases, each printing its elapsed seconds as it ends:
      f64; (c) ps_postproc (with ray and angle filtering) and camcal on
      small networks, card against CPU: the same iterations, sigma0 and
      x within 1e-9 relative; (d) the host's native helpers built
-     (have_native) and equal to their numpy formulas (NATIVE_TOL).
+     (have_native) and equal to their numpy formulas (NATIVE_TOL);
+ 13. the feature front-end at DBAT's camcal shape (CAMCAL_FEATURES: 21
+     images of 2272 x 1704 px, 99 points seen by all of them, 2,079
+     observations): the
+     network rendered, written as 8-bit gray PNGs with every filter type
+     beside tests/test_script_features.py's <features> script for this
+     camera (tests/port_features.py) and read back by load_images (no
+     matplotlib), each stage timed; detect, describe and match twice on
+     the card, bit for bit equal; the card against the CPU on the first
+     FEATURES_CPU_IMAGES images (valid masks equal, xy within 1e-3 px,
+     descriptors within 1e-5, at most 0.5% of the matches different);
+     then run_script(backend="schur") on the card: load_images, detect,
+     describe, match, tracks, pose-graph initialisation, two screens,
+     two f64 bundles, the report.  Gates: tests/test_features.py's
+     detection accuracy, tracks > 0.7 of the points,
+     tests/test_script_features.py's script gates (ok, n_op > 0.6 and
+     n_obs > 0.5 of the truth, sigma0 < 1.0), both kernels launched in
+     f64 and, on the last bundle's inputs (f64, nb 6, every camera pair
+     sharing its points), timed and held against their plain versions;
+     each bundle run again by bundle() on the CPU from the same start:
+     the same ok and iterations, sigma0 and the final x within 1e-9
+     relative.  No plots are drawn here (tests/test_torch_plotting.py
+     holds them on the CPU).
 Phase 5 also holds the small network's f64 covariance on the card to
 the CPU's (COV_SMALL_TOL), f64 PCG on the card to the direct solve, and
 a DBAT script on the small network (POSEGRAPH_SCRIPT_OPS: pose-graph
 initialisation, outlier screen, bundle) run from one folder on the card
 and on the CPU to 1e-9 in sigma0 and x.
-Phases 6, 8, 9, 10, 11 and 12 each zero the launch counts just before
-and read them just after; every kernel must have launched in each (in
-f64 in 9; in 10 both in the bundle and in the covariance after it; in
-11 in f64, both in the bundle and in the output files' covariances; in
-12 in f32 in (a) and in f64 in (b)).
+Phases 6, 8, 9, 10, 11, 12 and 13 each zero the launch counts just
+before and read them just after; every kernel must have launched in
+each (in f64 in 9; in 10 both in the bundle and in the covariance after
+it; in 11 in f64, both in the bundle and in the output files'
+covariances; in 12 in f32 in (a) and in f64 in (b); in 13 in f64).
 
 Exits nonzero, printing no result, without a CUDA card or when any
 phase fails.  The last three lines are the kernels JSON, the card's
@@ -896,6 +918,213 @@ def input_phase(card, launches, c5_psz):
             "native_err": native_err, "by_dtype": by_dtype}
 
 
+#: DBAT's camcal network (REAL_CAMCAL.md: 21 Olympus C4040Z images of
+#: 2272 x 1704 px of one sheet of targets, 2,074 marks, ~99 an image).
+#: make_ring_network's default camera (sensor 7.3 x 5.4 mm, 2272 x 1704
+#: px, focal 7 mm) is that camera; 99 points each seen by all 21 images
+#: give 2,079 observations.  (A ring whose points each see a run of a
+#: few images, as the C5 networks do, leaves image pairs without a
+#: common point, whose false matches merge unrelated tracks.)  No
+#: distortion, no noise: the rendered targets carry the truth, and the
+#: detector's localisation is what the gates measure.
+CAMCAL_FEATURES = dict(n_img=21, n_pt=99, rays_per_pt=21, n_ctrl=0,
+                       noise_px=0.0, ip_std_px=0.1, K=(0.0, 0.0, 0.0),
+                       P=(0.0, 0.0), seed=3)
+#: The features phase holds the card against the CPU on the first images
+#: of the batch (each image is detected and described on its own, each
+#: pair matched on its own), to keep the CPU's share of the phase short.
+FEATURES_CPU_IMAGES = 6
+
+
+def features_phase(card, launches):
+    """Phase 13: the feature front-end at DBAT's camcal shape.  The
+    network is rendered (render_network_images, seed 4), written as 8-bit
+    gray PNGs (every PNG filter type) beside tests/test_script_features.py's
+    DBAT script for this camera (port_features), and read back by
+    load_images; detect, describe and match run twice on the card (bit for
+    bit equal) and are held against the CPU; then run_script runs the
+    script (the <features> input, pose-graph initialisation, two screens,
+    two f64 bundles on the Schur backend, the report) on the card.  Gates:
+    tests/test_features.py's detection accuracy, tracks > 0.7 of the
+    points, tests/test_script_features.py's script gates, both kernels
+    launched in f64 and held against their plain versions on the last
+    bundle's inputs, and each bundle against the same bundle() call on
+    the CPU from the same start (ok and iterations equal, sigma0 and final
+    x within 1e-9 relative).  Raises on a failed gate; returns the stage
+    times, the numbers it checked and the kernel rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from port_features import card_vs_cpu, detection_stats, \
+        features_script, same_matches, to_gray8, write_features_folder
+
+    import dbat_tpu_torch.pipeline.script as script_mod
+    from dbat_tpu_torch.features import build_tracks, describe, \
+        detect_blobs, match_all_pairs
+    from dbat_tpu_torch.features.pipeline import load_images
+    from dbat_tpu_torch.features.render import render_network_images
+    from dbat_tpu_torch.io.native import have_native
+    from dbat_tpu_torch.pipeline.synthetic import make_ring_network
+
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t1
+        return out
+
+    reset_counts()
+    gt = timed("network", lambda: make_ring_network(**CAMCAL_FEATURES))
+    images = timed("render", lambda: render_network_images(gt, seed=4))
+    W, H = (int(v) for v in gt.sensor_im_size[0])
+    script = features_script(gt.sensor_ss_size[0], (W, H), gt.io[0, 0])
+    max_kp = 256  # the script's
+    # Each bundle's start, arguments and result; the last one's operator.
+    bundles, starts, last = [], [], {}
+    real_bundle = script_mod.bundle
+
+    def bundle_spy(project, **kwargs):
+        starts.append((project.copy(), kwargs))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real_bundle(project, **kwargs)
+        torch.cuda.synchronize()
+        bundles.append({"s": time.perf_counter() - t1, "ok": out[1],
+                        "iters": out[2], "sigma0": out[3],
+                        "n_op": project.n_op, "n_obs": project.n_obs})
+        last["x"] = np.asarray(out[4].final_x)
+        last["ops"] = out[4].ops
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = timed("PNG write", lambda: write_features_folder(
+            images, tmp, script))
+        png_mb = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp) if f.endswith(".png")) / 1e6
+        paths = [os.path.join(tmp, f"img{i:02d}.png")
+                 for i in range(gt.n_img)]
+        imgs = timed("load_images", lambda: load_images(paths))
+        exact = np.array_equal(imgs, np.divide(
+            to_gray8(images, float(images.min()), float(images.max())),
+            255, dtype=np.float32))
+        on_card = timed("upload", lambda: torch.from_numpy(imgs).cuda())
+        runs = []
+        for k in range(2):
+            det = timed(f"detect {k + 1}", lambda: detect_blobs(
+                on_card, max_kp=max_kp, device="cuda"))
+            desc = timed(f"describe {k + 1}", lambda: describe(
+                on_card, det[0], det[2], device="cuda"))
+            m = timed(f"match {k + 1}", lambda: match_all_pairs(
+                desc, det[2], device="cuda"))
+            runs.append(([t.cpu().numpy() for t in (*det, desc)], m))
+        bitwise = (all(np.array_equal(a, b)
+                       for a, b in zip(runs[0][0], runs[1][0]))
+                   and same_matches(runs[0][1], runs[1][1]))
+        (xy, _score, valid, _desc), matches = runs[0]
+        found, total, errs = detection_stats(gt, xy, valid)
+        tracks = timed("tracks", lambda: build_tracks(matches, gt.n_img,
+                                                      max_kp))
+        del on_card
+        gap = timed("card vs CPU", lambda: card_vs_cpu(
+            imgs[:FEATURES_CPU_IMAGES], "cuda", max_kp))
+        script_mod.bundle = bundle_spy
+        try:
+            r = timed("run_script", lambda: script_mod.run_script(
+                xml, backend="schur", device="cuda"))
+        finally:
+            script_mod.bundle = real_bundle
+        report = os.path.join(tmp, "features-report.txt")
+        report_lines = (len(open(report).read().splitlines())
+                        if os.path.exists(report) else 0)
+    launches["features"] = read_counts()
+    f64 = read_counts(torch.float64)
+    # Last bundle's kernels against their plain versions at this layout
+    # (every camera pair sharing its points), then each bundle on the CPU.
+    nb = last["ops"].n_cb
+    rows = check_kernels(last["ops"], "float64", timed=True)
+    del last["ops"]
+    cpu_x = None
+    for k, (start, kwargs) in enumerate(starts):
+        _p, ok_c, it_c, s0_c, info_c = timed(
+            f"bundle {k + 1} on the CPU",
+            lambda: real_bundle(start, **{**kwargs, "device": "cpu"}))
+        bundles[k]["cpu"] = (ok_c, it_c, s0_c)
+        cpu_x = np.asarray(info_c.final_x)
+    x_rel = float(np.abs(last["x"] - cpu_x).max() / np.abs(cpu_x).max())
+    try:
+        import matplotlib  # noqa: F401
+        plots = "matplotlib is installed, but"
+    except ImportError:
+        plots = "matplotlib is not installed here, so"
+    n_pairs = gt.n_img * (gt.n_img - 1) // 2
+    log(f"features phase on {card}: camcal shape, {gt.n_img} images of "
+        f"{W} x {H} px, {gt.n_op} points, {gt.n_obs} observations; PNGs "
+        f"{png_mb:.1f} MB; load_images (native unfilter: {have_native()}) "
+        f"equal to the written samples: {exact}; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"  detection (card): {int(valid.sum())} keypoints, {found} of "
+        f"{total} isolated in-border targets within 1 px (gate > 0.9), "
+        f"error median {np.median(errs):.4f} px (< 0.15), mean "
+        f"{errs.mean():.4f} px (< 0.3); "
+        f"{sum(len(v[0]) for v in matches.values())} matches over {len(matches)} of {n_pairs} pairs; {len(tracks)} "
+        f"tracks (gate > {0.7 * gt.n_op:.1f}); detect, describe and match "
+        f"twice on the card bit for bit equal: {bitwise}")
+    log(f"  card vs CPU on the first {FEATURES_CPU_IMAGES} images, each "
+        f"stage fed the CPU's inputs: valid masks equal {gap['valid_equal']}, "
+        f"max |xy diff| {gap['xy_err']:.3e} px (tol 1e-3), max |descriptor "
+        f"diff| {gap['desc_err']:.3e} (tol 1e-5), matches {gap['n_matches']}, "
+        f"in one set only {gap['n_differ']} (tol 0.5%)")
+    log(f"  run_script(backend=schur) on the card: ok {r.ok}, sigma0 "
+        f"{r.sigma0!r}, n_op {r.project.n_op} (gate > {0.6 * gt.n_op:.1f}), "
+        f"n_obs {r.project.n_obs} (gate > {0.5 * gt.n_obs:.1f}); bundles "
+        f"{bundles} (\"cpu\": the same call on the CPU, ok, iterations, "
+        f"sigma0; tol 1e-9 relative); last bundle's final x card vs CPU, "
+        f"max |diff| / max |x| {x_rel:.3e} (tol 1e-9); report "
+        f"{report_lines} lines; script stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r.times.items()))
+    log(f"  launches in this phase {launches['features']} (f64 {f64}); "
+        f"{plots} the phase draws no plots (tests/test_torch_plotting.py "
+        f"holds them against the JAX package on the CPU)")
+    if not exact:
+        raise RuntimeError("features: load_images differs from the PNGs")
+    if not (found > 0.9 * total and np.median(errs) < 0.15
+            and errs.mean() < 0.3):
+        raise RuntimeError("features: detection accuracy gate failed")
+    if not len(tracks) > 0.7 * gt.n_op:
+        raise RuntimeError("features: too few tracks")
+    if not bitwise:
+        raise RuntimeError("features: the front-end does not repeat bit "
+                           "for bit on the card")
+    if not (gap["valid_equal"] and gap["xy_err"] <= 1e-3
+            and gap["desc_err"] <= 1e-5
+            and gap["n_differ"] <= 0.005 * gap["n_matches"]):
+        raise RuntimeError("features: card and CPU disagree")
+    if not (r.ok and r.project.n_op > 0.6 * gt.n_op
+            and r.project.n_obs > 0.5 * gt.n_obs and r.sigma0 < 1.0
+            and len(bundles) == 2 and report_lines > 0):
+        raise RuntimeError("features: the script failed its gates")
+    for b in bundles:
+        ok_c, it_c, s0_c = b["cpu"]
+        if not (ok_c and it_c == b["iters"]
+                and abs(b["sigma0"] / s0_c - 1) <= 1e-9):
+            raise RuntimeError("features: a bundle is off its CPU run")
+    if not x_rel <= 1e-9:
+        raise RuntimeError("features: the final x is off the CPU's")
+    missing = [nm for nm, n in f64.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"features: kernels not launched in f64: "
+                           f"{missing}")
+    return {"times": times, "script_times": r.times, "bundles": bundles,
+            "detection": (found, total, float(np.median(errs)),
+                          float(errs.mean())),
+            "tracks": len(tracks), "card_vs_cpu": gap, "x_rel": x_rel,
+            "nb": nb, "rows": rows}
+
+
 def main():
     import tempfile
 
@@ -1257,6 +1486,11 @@ def main():
     input_out = input_phase(card, launches, c5_psz)
     phase_done("input", t, card)
 
+    # 13. The feature front-end at DBAT's camcal shape ----------------------
+    t = time.perf_counter()
+    features_out = features_phase(card, launches)
+    phase_done("features", t, card)
+
     # Kernel summary: device times per C5 outer iteration (the five
     # kernel-A calls and the one kernel-B call of one assembly + S
     # build, f32), launches summed over every path in launches_by_path.
@@ -1295,10 +1529,14 @@ def main():
              "solve)", card)
     log_rows(psz_rows, "C5 f32, nb 6, the loaded .psz (one assembly + "
              "solve)", card)
+    log_rows(features_out.pop("rows"), f"camcal features f64, nb "
+             f"{features_out['nb']}, the script's last bundle (one assembly "
+             f"+ solve)", card)
     log(f"covariance at the C5 shape, f32, on {card}: {cov_out}")
     log(f"DBAT script at the C5 shape, f64, on {card}: {script_out}")
     log(f"PhotoModeler and PhotoScan input at the C5 shape on {card}: "
         f"{input_out}")
+    log(f"feature front-end at the camcal shape on {card}: {features_out}")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -16,6 +16,9 @@
 //       COP_j = Vinv_j + Vinv_j (Y_j' Y_j) Vinv_j given precomputed
 //       Y columns (icpc_mex.c equivalent; a host form of the point
 //       blocks of the solver's covariance).
+//   png_unfilter        : undo the per-row filters of a decompressed
+//       PNG image (io/png.py; the Average and Paeth filters are a
+//       per-pixel recurrence along each row).
 //
 // Exposed with a plain C ABI for ctypes (no pybind11 needed).
 // Built at first use by the port's io/native.py with the host compiler
@@ -187,6 +190,45 @@ void icpc_blocks(const double* Vinv, const double* Y, long k, long m,
                 out[j * 9 + r * 3 + c] = s2 * acc;
             }
     }
+}
+
+// ---------------------------------------------------------------------------
+// png_unfilter: PNG filter types 0-4 (PNG spec, section 9).  data holds
+// h rows of 1 + stride bytes, the row's filter type first; bpp is the
+// number of bytes of one pixel (at least 1).  The unfiltered rows go to
+// out (h * stride bytes).  Returns 0, or 1 + the first row whose filter
+// type is unknown.
+// ---------------------------------------------------------------------------
+long png_unfilter(const uint8_t* data, long h, long stride, long bpp,
+                  uint8_t* out) {
+    for (long r = 0; r < h; r++) {
+        const uint8_t* f = data + r * (stride + 1) + 1;
+        uint8_t* o = out + r * stride;
+        const uint8_t* up = r > 0 ? o - stride : nullptr;
+        const int type = f[-1];
+        for (long i = 0; i < stride; i++) {
+            const int a = i >= bpp ? o[i - bpp] : 0;
+            const int b = up ? up[i] : 0;
+            const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+            int pred;
+            switch (type) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: {
+                    const int p = a + b - c;
+                    const int pa = std::abs(p - a), pb = std::abs(p - b),
+                              pc = std::abs(p - c);
+                    pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    break;
+                }
+                default: return r + 1;
+            }
+            o[i] = static_cast<uint8_t>(f[i] + pred);
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -2,4 +2,4 @@
 control-point, image and EO table loaders, the PhotoModeler export,
 tables and report, the PhotoScan .psz and lens .lnz projects, PLY, the
 DBAT report, the EO, residual and statistics files, the report
-comparison, and the host's native helpers."""
+comparison, the host's native helpers, and a PNG reader."""

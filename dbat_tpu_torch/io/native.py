@@ -2,12 +2,14 @@
 (`csrc/dbat_native.cpp`; counterpart of dbat_tpu/io/native.py).
 
 These are host-side C++ routines (a fast table parser, dense block
-products, 3x3 inverses, point covariance blocks), not device kernels.
+products, 3x3 inverses, point covariance blocks, the PNG row unfilter
+of io/png.py), not device kernels.
 The library is built at first use with the host C++ compiler
 (`$CXX`, default g++; `-O2 -shared -fPIC`) into `_build/`, apart from
 the CUDA build of `build.py`, so it builds where there is no CUDA
 toolkit.  Where it cannot be built every entry point returns the same
-numpy result the JAX package's fallback gives.
+numpy result the JAX package's fallback gives (the PNG unfilter, which
+the JAX package lacks: the C++ loop in plain Python).
 """
 
 from __future__ import annotations
@@ -93,6 +95,11 @@ def _load():
         ctypes.c_long, ctypes.c_long, ctypes.c_double,
         ctypes.POINTER(ctypes.c_double),
     ]
+    lib.png_unfilter.restype = ctypes.c_long
+    lib.png_unfilter.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_char_p,
+    ]
     _LIB = lib
     return lib
 
@@ -175,4 +182,49 @@ def icpc_blocks(Vinv: np.ndarray, Y: np.ndarray, s2: float) -> np.ndarray:
         return s2 * (Vinv + np.einsum("jab,jbc,jcd->jad", Vinv, G, Vinv))
     out = np.empty((m, 3, 3), dtype=np.float64)
     lib.icpc_blocks(_ptr(Vinv), _ptr(Y), k, m, float(s2), _ptr(out))
+    return out
+
+
+def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo PNG's per-row filters: rows (h, 1 + stride) uint8, each row
+    its filter type then its filtered bytes; bpp bytes per pixel.
+    Returns the (h, stride) uint8 image bytes; plain Python fallback."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    bad = np.flatnonzero(rows[:, 0] > 4)
+    if len(bad):
+        raise ValueError(f"PNG row {bad[0]}: unknown filter type "
+                         f"{rows[bad[0], 0]}")
+    lib = _load()
+    if lib is None:
+        return _png_unfilter_py(rows, bpp)
+    out = np.empty((h, stride), dtype=np.uint8)
+    rc = lib.png_unfilter(rows.ctypes.data_as(ctypes.c_char_p), h, stride,
+                          bpp, out.ctypes.data_as(ctypes.c_char_p))
+    if rc != 0:
+        raise ValueError(f"PNG row {rc - 1}: unknown filter type")
+    return out
+
+
+def _png_unfilter_py(rows, bpp):
+    """The C++ loop of png_unfilter in plain Python, for hosts where the
+    library cannot be built: slow, and the same bytes."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), dtype=np.uint8)
+    up = [0] * stride
+    for r in range(h):
+        f, kind, o = rows[r, 1:].tolist(), int(rows[r, 0]), [0] * stride
+        for i in range(stride):
+            a = o[i - bpp] if i >= bpp else 0
+            b = up[i]
+            c = up[i - bpp] if i >= bpp else 0
+            if kind == 4:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+            else:
+                pred = (0, a, b, (a + b) >> 1)[kind]
+            o[i] = (f[i] + pred) & 0xFF
+        out[r] = o
+        up = o
     return out

@@ -9,17 +9,17 @@ spatial_resection, forward_intersection, pose_graph_init,
 prune_by_reprojection, bundle_adjustment) + output (report/io/eo/
 image_residuals files).
 
-The input, the operations and the writers are host numpy.  The bundle
-runs in float64 on `device` (default: the CUDA card; without one it
-raises unless the caller passes device="cpu"), and the posterior
-covariances of the report and the EO file run where the bundle's ops
-live.
+Besides DBAT's <image_pts> tables, the input may be <features>: the
+images themselves, detected, described and matched on `device`
+(features/), with tracks built on the host.  The output may add
+<plots> (plotting/, matplotlib) after the files; a plot that fails
+warns and never fails the script.
 
-Two branches wait for the modules they need (ROADMAP.md, open items,
-queue 1): the <features> input (features/, item 2) and the <plots>
-output (plotting/, item 3).  Each raises NotImplementedError where it
-would act: <plots> only where a bundle runs and the outputs have a
-folder (output_dir, or a <files> element).
+The input tables, the operations and the writers are host numpy.  The
+bundle runs in float64 on `device` (default: the CUDA card; without one
+it raises unless the caller passes device="cpu"), and the posterior
+covariances of the report, the EO file and the statistics plots run
+where the bundle's ops live.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from __future__ import annotations
 import os
 import os.path as osp
 import time
+import warnings
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -34,6 +35,7 @@ import torch
 
 from ..core.project import prune_network
 from ..device import resolve_device
+from ..features.pipeline import load_images, network_from_images
 from ..geometry.initvals import forward_intersect, resect
 from ..geometry.posegraph import init_from_pose_graph
 from ..geometry.quality import ray_counts, reprojection_residuals_px
@@ -62,8 +64,10 @@ class ScriptResult:
         self.sigma0 = None
         self.iters = None
         self.outputs = []
-        #: host seconds per stage: "input", each operation by name
-        #: (summed when repeated), each output file by its tag
+        #: host seconds per stage: "input" (with the <features> input
+        #: also "load_images", "detect", "describe", "match" and
+        #: "tracks" within it), each operation by name (summed when
+        #: repeated), each output file by its tag, and "plots"
         self.times = {}
 
 
@@ -110,14 +114,6 @@ def run_script(xml_path: str, damping: str = "gna", trace: bool = False,
         raise ValueError(f"Unsupported dbat_script_version {version}")
     ops = doc.find("operations").findall("operation")
     out = doc.find("output")
-    # Plots are drawn after a bundle, into output_dir or the folder of
-    # <files>; raise before any work where they would be.
-    if (write_outputs and out is not None and out.find("plots") is not None
-            and (output_dir or out.find("files") is not None)
-            and any(_op_name(op)[0] == "bundle_adjustment" for op in ops)):
-        raise NotImplementedError(
-            "the <plots> output needs plotting/, which is not ported yet "
-            "(ROADMAP.md, open items, queue 1 item 3)")
 
     res = ScriptResult()
 
@@ -149,18 +145,15 @@ def run_script(xml_path: str, damping: str = "gna", trace: bool = False,
         raise ValueError(
             "input has BOTH <image_pts> and <features>; measurements "
             "would silently lose to detector output — remove one")
-    if feat_el is not None:
-        raise NotImplementedError(
-            "the <features> input needs features/, which is not ported "
-            "yet (ROADMAP.md, open items, queue 1 item 2)")
-    pts_rows = []
-    for f in pts_el.findall("file"):
-        default_sxy = float(f.get("sxy", "nan"))
-        pts_rows.append(load_image_pts(
-            _resolve(f.text.strip(), base, doc_dir),
-            f.get("format", "im,id,x,y,sxy"), default_sxy,
-        ))
-    image_pts = np.concatenate(pts_rows, axis=0)
+    if pts_el is not None:
+        pts_rows = []
+        for f in pts_el.findall("file"):
+            default_sxy = float(f.get("sxy", "nan"))
+            pts_rows.append(load_image_pts(
+                _resolve(f.text.strip(), base, doc_dir),
+                f.get("format", "im,id,x,y,sxy"), default_sxy,
+            ))
+        image_pts = np.concatenate(pts_rows, axis=0)
 
     def load_pts_section(el):
         f = el.find("file")
@@ -190,10 +183,54 @@ def run_script(xml_path: str, damping: str = "gna", trace: bool = False,
     if meta is not None and meta.find("name") is not None:
         title = meta.find("name").text.strip()
 
-    s = project_from_tables(
-        cameras, image_ids, image_paths, image_pts,
-        ctrl_pts=ctrl, check_pts=check, title=title, file_name=xml_path,
-    )
+    if feat_el is not None:
+        # From-pixels input (no DBAT analog: loadpm.m/loadpsz.m stop at
+        # measurement-file import): detect, describe and match the
+        # images, build tracks and assemble the measured network.  EO/OP
+        # start NaN-poisoned; the pose_graph_init (or spatial_resection)
+        # operation initializes them.
+        if ctrl is not None or check is not None:
+            raise ValueError(
+                "<features> input has no point ids to match "
+                "ctrl_pts/check_pts against; use set_datum or fix "
+                "tracks by id downstream")
+        cam0 = cameras[0]
+        t = time.perf_counter()
+        imgs = load_images(image_paths)
+        res.times["load_images"] = time.perf_counter() - t
+        if feat_el.get("invert", "no") == "yes":
+            imgs = imgs.max() - imgs  # dark targets on light background
+        extra_kw = {}
+        if feat_el.get("sigma"):
+            extra_kw["sigma"] = float(feat_el.get("sigma"))
+        if feat_el.get("min_distance"):
+            extra_kw["min_distance"] = int(feat_el.get("min_distance"))
+        if feat_el.get("refine_radius"):
+            extra_kw["refine_radius"] = int(feat_el.get("refine_radius"))
+        s, extras = network_from_images(
+            imgs,
+            focal=cam0.camera_constant,
+            sensor=tuple(cam0.eval_sensor()),
+            detector=feat_el.get("detector", "blob"),
+            max_kp=int(feat_el.get("max_kp", "512")),
+            min_views=int(feat_el.get("min_views", "2")),
+            ratio=float(feat_el.get("ratio", "0.9")),
+            ip_std_px=float(feat_el.get("sxy", "0.1")),
+            device=device,
+            **extra_kw,
+        )
+        res.times.update(extras["times"])
+        s.title = title
+        s.file_name = xml_path
+        s.img_names = list(image_paths)
+        s.img_labels = [osp.basename(p) for p in image_paths]
+        s.img_ids = np.asarray(image_ids)
+    else:
+        s = project_from_tables(
+            cameras, image_ids, image_paths, image_pts,
+            ctrl_pts=ctrl, check_pts=check, title=title,
+            file_name=xml_path,
+        )
     if prior_eo is not None:
         # Script prior_eo supplies initial values only
         # (parseinput.m:89-93): no observation/est changes.
@@ -282,7 +319,54 @@ def run_script(xml_path: str, damping: str = "gna", trace: bool = False,
             res.outputs = _write_outputs(s, bundle_out, files, fbase,
                                          doc_dir, xml_path, damping,
                                          res.times)
+        plots = out.find("plots")
+        if plots is not None and (output_dir or files is not None):
+            t = time.perf_counter()
+            pbase = output_dir or _base_dir(files, doc_dir)
+            res.outputs += _write_plots(s, bundle_out, plots, pbase)
+            res.times["plots"] = time.perf_counter() - t
     return res
+
+
+def _write_plots(s, info, plots, base):
+    """<plots> section -> PNG files (parseoutput.m plot dispatch).  A plot
+    that fails warns: plots never fail the pipeline."""
+    from .. import plotting
+
+    written = []
+    pdir = osp.join(base, "plots")
+    os.makedirs(pdir, exist_ok=True)
+    for pl in plots.findall("plot"):
+        kind = (pl.text or "").strip()
+        path = osp.join(pdir, f"{kind}.png")
+        try:
+            if kind == "image":
+                img_id = int(pl.get("id", "1")) - 1
+                plotting.plot_images(s, img_id, save=path)
+            elif kind == "image_stats":
+                plotting.plot_image_stats(s, info, save=path)
+            elif kind == "op_stats":
+                plotting.plot_op_stats(
+                    s, info, max_op=int(pl.get("max_op", "1000")), save=path
+                )
+            elif kind == "coverage":
+                plotting.plot_coverage(
+                    s, convex_hull=pl.get("convex_hull", "") == "true",
+                    save=path,
+                )
+            elif kind == "params":
+                plotting.plot_params(s, info, save=path)
+            elif kind == "iteration_trace":
+                plotting.plot_network(
+                    s, info, iteration=-1,
+                    cam_size=float(pl.get("cam_size", "0.1")), save=path,
+                )
+            else:
+                continue
+            written.append(path)
+        except Exception as e:  # plots must never fail the pipeline
+            warnings.warn(f"plot {kind} failed: {e}")
+    return written
 
 
 def _set_initial_values(s, el, cameras):

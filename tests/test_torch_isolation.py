@@ -1,6 +1,7 @@
 """The port stands alone: no module of dbat_tpu_torch, and neither
 chip_smoke.py nor the writers it imports (tests/port_script_folder.py,
-tests/port_pm_export.py), imports JAX or the JAX package; the kernels
+tests/port_pm_export.py, tests/port_features.py), imports JAX or the JAX
+package; the kernels
 are built from plain-C-interface sources without PyTorch's extension
 machinery; entry points never fall back to the CPU on their own."""
 
@@ -33,13 +34,18 @@ PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
                 "geometry/posegraph.py", "io/pm.py", "io/ply.py",
                 "io/psz.py", "io/pmtables.py", "io/lnz.py", "io/native.py",
                 "core/checkpoint.py", "pipeline/demos.py",
-                "pipeline/run_all.py")
+                "pipeline/run_all.py", "io/png.py", "features/__init__.py",
+                "features/render.py", "features/detect.py",
+                "features/describe.py", "features/match.py",
+                "features/tracks.py", "features/pipeline.py",
+                "plotting/__init__.py", "plotting/plots.py")
 
 
 def _port_python_files():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "port_script_folder.py",
-        ROOT / "tests" / "port_pm_export.py"]
+        ROOT / "tests" / "port_pm_export.py",
+        ROOT / "tests" / "port_features.py"]
     assert len(files) > 10
     return files
 
@@ -49,6 +55,7 @@ def test_import_check_covers_the_bundle_slice():
     for mod in PORT_MODULES:
         assert PORT / mod in files, mod
     assert ROOT / "tests" / "port_pm_export.py" in files
+    assert ROOT / "tests" / "port_features.py" in files
 
 
 def _imported_modules(path):
@@ -176,3 +183,43 @@ def test_run_all_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_all.main(["--out", str(tmp_path)])
+
+
+def _feature_calls():
+    import numpy as np
+
+    from dbat_tpu_torch.features import describe, detect_blobs, \
+        detect_corners, match_all_pairs, match_pair, network_from_images
+    from dbat_tpu_torch.features.detect import refine_centroid
+
+    img = np.zeros((2, 30, 40), np.float32)
+    xy = np.zeros((2, 4, 2), np.float32)
+    valid = np.zeros((2, 4), bool)
+    desc = np.zeros((2, 4, 196), np.float32)
+    return {
+        "detect_blobs": lambda **kw: detect_blobs(img, **kw),
+        "detect_corners": lambda **kw: detect_corners(img, **kw),
+        "refine_centroid": lambda **kw: refine_centroid(img, xy, valid,
+                                                        **kw),
+        "describe": lambda **kw: describe(img, xy, valid, **kw),
+        "match_pair": lambda **kw: match_pair(desc[0], valid[0], desc[1],
+                                              valid[1], **kw),
+        "match_all_pairs": lambda **kw: match_all_pairs(desc, valid, **kw),
+        "network_from_images": lambda **kw: network_from_images(
+            img, focal=7.0, sensor=(8.0, 6.0), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["detect_blobs", "detect_corners",
+                                  "refine_centroid", "describe",
+                                  "match_pair", "match_all_pairs",
+                                  "network_from_images"])
+def test_feature_entry_points_default_to_the_card(monkeypatch, name):
+    """The feature front-end runs on the card unless the caller asks for
+    the CPU; without a card it raises."""
+    call = _feature_calls()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(**kw)
+    call(device="cpu")

@@ -413,3 +413,34 @@ def test_pcg_on_the_card_matches_the_direct_solve():
     np.testing.assert_allclose(pcg, direct, rtol=1e-6, atol=1e-8 * scale)
     np.testing.assert_allclose(pcg, out["cpu"][1], rtol=1e-6,
                                atol=1e-8 * scale)
+
+
+@pytest.mark.gpu
+def test_feature_front_end_on_the_card_matches_the_cpu():
+    """detect, describe and match of tests/test_features.py's 10 images
+    (800x600 px) on the card: twice bit for bit equal, and against the
+    CPU with each stage fed the CPU's inputs (port_features.card_vs_cpu):
+    valid masks equal, xy within 1e-3 px, descriptors within 1e-5,
+    matches equal but for at most 0.5% of them."""
+    from port_features import JAX_TEST_NET, card_vs_cpu, same_matches
+
+    from dbat_tpu_torch.features import describe, detect_blobs, \
+        match_all_pairs
+    from dbat_tpu_torch.features.render import render_network_images
+
+    dev = _card()
+    images = render_network_images(make_ring_network(**JAX_TEST_NET),
+                                   seed=4)
+    runs = []
+    for _ in range(2):
+        xy, score, valid = detect_blobs(images, max_kp=256, device=dev)
+        desc = describe(images, xy, valid, device=dev)
+        runs.append(([t.cpu().numpy() for t in (xy, score, valid, desc)],
+                     match_all_pairs(desc, valid, device=dev)))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert same_matches(runs[0][1], runs[1][1])
+    gap = card_vs_cpu(images, dev, 256)
+    assert gap["valid_equal"] and gap["xy_err"] <= 1e-3
+    assert gap["desc_err"] <= 1e-5 and gap["n_matches"] > 400
+    assert gap["n_differ"] <= 0.005 * gap["n_matches"]

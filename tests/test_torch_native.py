@@ -99,3 +99,37 @@ def test_fallback_equals_the_jax_fallback(tmp_path, monkeypatch):
     path, rows = _table(tmp_path)
     np.testing.assert_array_equal(tnative.parse_numeric_table(path, 4),
                                   jnative.parse_numeric_table(path, 4))
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 8])
+def test_png_unfilter_library_equals_the_python_loop(monkeypatch, bpp):
+    """The PNG row unfilter (io/png.py's only native step): the library
+    and its plain Python fallback give the same bytes for every filter
+    type."""
+    rng = np.random.default_rng(bpp)
+    h, w = 29, 17
+    raw = rng.integers(0, 256, (h, w * bpp)).astype(np.uint8)
+    ftype = rng.integers(0, 5, h).astype(np.uint8)
+    rows = np.concatenate([ftype[:, None], raw], axis=1)
+    got = tnative.png_unfilter(rows, bpp)
+    np.testing.assert_array_equal(got, tnative._png_unfilter_py(rows, bpp))
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    np.testing.assert_array_equal(tnative.png_unfilter(rows, bpp), got)
+    rows[3, 0] = 5
+    with pytest.raises(ValueError, match="row 3: unknown filter type 5"):
+        tnative.png_unfilter(rows, bpp)
+
+
+def test_png_reader_undoes_every_filter_with_and_without_library(
+        tmp_path, monkeypatch):
+    from port_features import write_png
+
+    from dbat_tpu_torch.io.png import read_png
+
+    rng = np.random.default_rng(11)
+    px = rng.integers(0, 256, (21, 13, 3))
+    write_png(tmp_path / "x.png", px, filters=(4, 3, 2, 1, 0))
+    want = np.divide(px.astype(np.uint8), 255, dtype=np.float32)
+    np.testing.assert_array_equal(read_png(tmp_path / "x.png"), want)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    np.testing.assert_array_equal(read_png(tmp_path / "x.png"), want)

@@ -18,8 +18,9 @@ numerically to 1e-8 (each EO column relative to its largest entry;
 the residual file's 6-digit numbers through compare_reports, which
 adds the printed precision); the report through the port's
 compare_reports with only the run-to-run keys excluded.  Also: the
-ray-count check's error, the two branches that raise
-NotImplementedError, and the path macros."""
+ray-count check's error, the <features> input (the script of
+tests/test_script_features.py on its rendered images), the <plots>
+output, and the path macros."""
 
 import os
 import re
@@ -28,12 +29,15 @@ import numpy as np
 import pytest
 
 from dbat_tpu.pipeline import script as jscript
+from dbat_tpu.pipeline.synthetic import make_ring_network as jmake
 from dbat_tpu_torch.io.report_compare import compare_reports
 from dbat_tpu_torch.pipeline import script as tscript
 from dbat_tpu_torch.pipeline.synthetic import make_ring_network, perturb
+from port_features import JAX_TEST_NET
 from port_script_folder import POSEGRAPH_SCRIPT_OPS, image_major, \
     read_eo_file, write_script_folder
 from port_shared import one_thread  # noqa: F401
+from test_script_features import SCRIPT as FEATURES_SCRIPT
 
 NET = dict(n_img=12, n_pt=300, rays_per_pt=(3, 9), n_obs_target=1500,
            n_ctrl=24, noise_px=0.1, ip_std_px=0.1,
@@ -49,6 +53,9 @@ RESECTION_OPS = """\
     <operation>forward_intersection</operation>
     <operation>bundle_adjustment</operation>"""
 OPS = {"resection": RESECTION_OPS, "pose graph": POSEGRAPH_SCRIPT_OPS}
+#: <plots> of the <features> script: every kind, and one unknown kind
+PLOT_KINDS = ("image", "image_stats", "op_stats", "coverage", "params",
+              "iteration_trace", "no_such_plot")
 #: Report keys that change from run to run.
 VOLATILE = ("Computation UUID", "version", "Last Bundle Run",
             "Execution times")
@@ -128,21 +135,91 @@ def test_ray_count_check_fails_like_jax(folders, tmp_path):
     assert msgs[0] == msgs[1]
 
 
-def test_features_input_is_not_ported(folders, tmp_path):
+@pytest.fixture(scope="module")
+def features_folder(tmp_path_factory):
+    """tests/test_script_features.py's folder: its 10 rendered images
+    written by plt.imsave, the image table and its <features> script."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from dbat_tpu.features.render import render_network_images
+
+    base = tmp_path_factory.mktemp("features")
+    images = render_network_images(jmake(**JAX_TEST_NET), seed=4)
+    lo, hi = float(images.min()), float(images.max())
+    rows = []
+    for i, img in enumerate(images):
+        p = base / f"img{i:02d}.png"
+        plt.imsave(str(p), img, cmap="gray", vmin=lo, vmax=hi)
+        rows.append(f"{i + 1},{p}")
+    (base / "images.txt").write_text("\n".join(rows) + "\n")
+    plots = "".join(f"<plot>{k}</plot>" for k in PLOT_KINDS)
+    (base / "script.xml").write_text(FEATURES_SCRIPT.replace(
+        "</files>", f"</files>\n    <plots>{plots}</plots>"))
+    return base
+
+
+def test_features_script_matches_jax(features_folder, tmp_path):
+    """The <features> input: load_images, detect, describe, match and
+    tracks, then pose-graph init, two screens and two bundles; and the
+    <plots> output with all six kinds (and one unknown kind, skipped by
+    both): the same files, each plot a real figure.  sigma0 is held to
+    1e-5 relative: the two front-ends' float32 subpixel positions differ
+    by up to 6.1e-5 px (test_torch_features.py), which moves sigma0 by
+    1.8e-6 relative."""
+    xml = str(features_folder / "script.xml")
+    rj = jscript.run_script(xml, output_dir=str(tmp_path / "jax"))
+    rt = tscript.run_script(xml, output_dir=str(tmp_path / "port"),
+                            device="cpu")
+    assert rt.ok and rj.ok and rt.iters == rj.iters
+    pt, pj = rt.project, rj.project
+    assert (pt.n_img, pt.n_op, pt.n_obs) == (pj.n_img, pj.n_op, pj.n_obs)
+    assert pt.n_op > 0.6 * JAX_TEST_NET["n_pt"]
+    assert pt.img_labels == pj.img_labels and pt.img_names == pj.img_names
+    np.testing.assert_array_equal(pt.img_ids, pj.img_ids)
+    np.testing.assert_array_equal(pt.obs_pt, pj.obs_pt)
+    assert rt.sigma0 == pytest.approx(rj.sigma0, rel=1e-5, abs=0)
+    assert rt.sigma0 < 1.0
+    names = [os.path.relpath(p, tmp_path / "port") for p in rt.outputs]
+    assert names == [os.path.relpath(p, tmp_path / "jax")
+                     for p in rj.outputs]
+    assert names == ["features-report.txt"] + [
+        f"plots/{k}.png" for k in PLOT_KINDS[:-1]]
+    assert min(os.path.getsize(tmp_path / "port" / n)
+               for n in names[1:]) > 5000
+    assert set(rt.times) >= {"load_images", "detect", "describe", "match",
+                             "tracks", "input", "pose_graph_init",
+                             "bundle_adjustment", "report", "plots"}
+
+
+def test_features_input_with_control_points_is_refused(folders, tmp_path):
     xml = _edited(folders, tmp_path, {
         '<image_pts><file format="im,id,x,y,sxy">image_pts.txt'
         '</file></image_pts>': '<features detector="blob"/>'})
-    with pytest.raises(NotImplementedError, match=r"features/.*queue 1 "
-                       r"item 2"):
-        tscript.run_script(xml, device="cpu")
+    for run, kw in ((tscript.run_script, {"device": "cpu"}),
+                    (jscript.run_script, {})):
+        with pytest.raises(ValueError, match="no point ids"):
+            run(xml, **kw)
 
 
-def test_plots_output_is_not_ported(folders, tmp_path):
+def test_a_failing_plot_warns_and_the_script_goes_on(folders, tmp_path,
+                                                    monkeypatch):
+    from dbat_tpu_torch import plotting
+
+    def broken(*_a, **_k):
+        raise RuntimeError("no figure")
+
+    monkeypatch.setattr(plotting, "plot_params", broken)
     xml = _edited(folders, tmp_path, {
-        "</files>": "</files>\n    <plots><plot>image_stats</plot></plots>"})
-    with pytest.raises(NotImplementedError, match=r"plotting/.*queue 1 "
-                       r"item 3"):
-        tscript.run_script(xml, device="cpu")
+        "</files>": "</files>\n    <plots><plot>params</plot>"
+                    "<plot>coverage</plot></plots>"})
+    with pytest.warns(UserWarning, match="plot params failed: no figure"):
+        r = tscript.run_script(xml, device="cpu",
+                               output_dir=str(tmp_path / "port"))
+    assert r.ok and [os.path.basename(p) for p in r.outputs][-1:] == \
+        ["coverage.png"]
     r = tscript.run_script(xml, device="cpu", write_outputs=False)
     assert r.ok and r.outputs == []
 
