@@ -94,17 +94,37 @@ Phases, each printing its elapsed seconds as it ends:
      each bundle run again by bundle() on the CPU from the same start:
      the same ok and iterations, sigma0 and the final x within 1e-9
      relative.  No plots are drawn here (tests/test_torch_plotting.py
-     holds them on the CPU).
+     holds them on the CPU);
+ 14. the mesh at the C5 shape: the point-partitioned backend
+     (parallel/sharded.py) as MESH_SHARDS shards on the one card (its
+     cost on one card, not scaling): (a) one f64 assembly and solve at
+     x0 against the unsharded SchurOps (g, the step and the matvec
+     within MESH_STEP_TOL), every kernel call of it, shard by shard,
+     against its plain version (REL_TOL, f64); (b) every kernel call
+     of one f32 assembly and solve, shard by shard, against its plain
+     version (REL_TOL), the largest shard's calls timed against their
+     bounds; (c) fused_gna on the shards to the noise floor (bench.py's
+     gate), then 10 fixed iterations from phase 6's start on 1 and on 8
+     shards (8 within MESH_RN_TOL of 1, the 8-shard run bitwise equal on
+     a second run; the gap to phase 6's unsharded run and the time per
+     iteration against phase 7's are measured) and from x0 on 8 shards
+     against the unsharded ops, run before (c) (within MESH_RN_TOL:
+     scripts/sharded_tpu_bench.py's gate); (d) bundle(gna, float64, mesh=) against bundle(gna,
+     float64, schur) on the card (the same iterations, sigma0 within
+     1e-9 relative, x within 1e-8), and the COP dealt over the shards
+     (cop(mesh=)) against cop() on one device (every variance within
+     1e-6 relative).
 Phase 5 also holds the small network's f64 covariance on the card to
 the CPU's (COV_SMALL_TOL), f64 PCG on the card to the direct solve, and
 a DBAT script on the small network (POSEGRAPH_SCRIPT_OPS: pose-graph
 initialisation, outlier screen, bundle) run from one folder on the card
 and on the CPU to 1e-9 in sigma0 and x.
-Phases 6, 8, 9, 10, 11, 12 and 13 each zero the launch counts just
+Phases 6, 8, 9, 10, 11, 12, 13 and 14 each zero the launch counts just
 before and read them just after; every kernel must have launched in
 each (in f64 in 9; in 10 both in the bundle and in the covariance after
 it; in 11 in f64, both in the bundle and in the output files'
-covariances; in 12 in f32 in (a) and in f64 in (b); in 13 in f64).
+covariances; in 12 in f32 in (a) and in f64 in (b); in 13 in f64; in
+14 in (c)'s sharded runs and bundle(mesh=), the "sharded" path).
 
 Exits nonzero, printing no result, without a CUDA card or when any
 phase fails.  The last three lines are the kernels JSON, the card's
@@ -161,6 +181,17 @@ PSZ_FILTER = dict(min_rays=4, min_angle=10.0)
 #: f64 extraction of the same solution in the world frame, relative:
 #: f64 rounding amplified by the scaled S's condition (~1e7-1e8).
 STD_REL_TOL = 1e-6
+
+
+#: Phase 14: the C5 network as this many shards on the one card.
+MESH_SHARDS = 8
+#: One f64 assembly and solve, sharded against unsharded: max |diff| /
+#: max |unsharded| of g, the step and the matvec (the rtols of
+#: tests/test_multichip.py).
+MESH_STEP_TOL = {"g": 1e-10, "p": 1e-7, "matvec": 1e-8}
+#: 10 fixed f32 iterations on the mesh against phase 6's unsharded run:
+#: the final ||r_w||, relative (the gate of scripts/sharded_tpu_bench.py).
+MESH_RN_TOL = 5e-4
 
 
 def log(msg):
@@ -254,10 +285,58 @@ def nbytes(*tensors):
     return sum(seen.values())
 
 
+def capture_shard_inputs(ops):
+    """capture_inputs for sharded ops (parallel/sharded.py): one dict per
+    owned shard, in shard order.  The shards share their FlatBilinear
+    objects and call each once per shard, in shard order."""
+    seen = [{} for _ in ops.shards]
+    names = ("_fb_u", "_fb_v", "_fb_w", "_fb_y", "_fb_pair")
+    originals = {nm: getattr(ops, nm) for nm in names}
+    plans = [sh.pair_plan for sh in ops.shards]
+
+    class RecFB:
+        def __init__(self, nm, fb):
+            self.nm, self.fb, self.calls = nm, fb, 0
+            self.d_out, self.g, self.table = fb.d_out, fb.g, fb.table
+
+        def __call__(self, A, B):
+            seen[self.calls].setdefault(self.nm, (A, B, self.fb))
+            self.calls += 1
+            return self.fb(A, B)
+
+    def rec_plan(k, plan):
+        def call(Yf, fb):
+            seen[k].setdefault("pair_bucket", (Yf, fb.fb))
+            return plan(Yf, fb)
+        return call
+
+    for nm in names:
+        setattr(ops, nm, RecFB(nm, originals[nm]))
+    for k, sh in enumerate(ops.shards):
+        sh.pair_plan = rec_plan(k, plans[k])
+    try:
+        x0 = ops.x0().to(ops.dtype)
+        U, V, Wb, gc, gp, rw = ops._assemble_impl(x0)
+        ops._solve_impl(U, V, Wb, -ops.join_x(gc, gp), 0.0)
+    finally:
+        for nm in names:
+            setattr(ops, nm, originals[nm])
+        for sh, plan in zip(ops.shards, plans):
+            sh.pair_plan = plan
+    return seen
+
+
 def check_kernels(ops, dtype_name, timed):
     """Every kernel against its plain version on the inputs of one
     assembly + solve of `ops`.  Returns per-kernel rows; raises when a
     kernel disagrees beyond REL_TOL."""
+    return check_calls(capture_inputs(ops), ops._pair_plan, ops.n_cb,
+                       dtype_name, timed)
+
+
+def check_calls(seen, plan, nb, dtype_name, timed, label=""):
+    """Every kernel call in `seen` (capture_inputs) and kernel B on
+    `plan`, against their plain versions; timed when `timed`."""
     import torch
 
     from dbat_tpu_torch.solve.kernels import (
@@ -267,8 +346,6 @@ def check_kernels(ops, dtype_name, timed):
     from dbat_tpu_torch.timing import call_ms, cold_ms, device_ms
 
     tol = REL_TOL[dtype_name]
-    seen = capture_inputs(ops)
-    nb = ops.n_cb
     rows = []
     for nm in ("_fb_u", "_fb_v", "_fb_w", "_fb_y", "_fb_pair"):
         A, B, fb = seen[nm]
@@ -300,8 +377,9 @@ def check_kernels(ops, dtype_name, timed):
                        plain_ms=cold_ms(plain), library_ms=cold_ms(lib),
                        library_err=lib_err, bytes=b, flops=ops_n)
         rows.append(row)
-        log(f"  fused_bilinear{nm[3:]:>6} {dtype_name} rows={A.shape[0]} "
-            f"d_a={A.shape[1]} d_b={B.shape[1]} d_out={fb.d_out} g={fb.g}: "
+        log(f"  {label}fused_bilinear{nm[3:]:>6} {dtype_name} "
+            f"rows={A.shape[0]} d_a={A.shape[1]} d_b={B.shape[1]} "
+            f"d_out={fb.d_out} g={fb.g}: "
             f"max abs err {err:.3e}, rel {rel:.3e} (tol rel {tol:g})"
             + (f" | kernel {row['ms']:.4f} ms device L2 flushed, "
                f"{row['warm_ms']:.4f} ms in a burst, {row['call_ms']:.4f} "
@@ -314,7 +392,6 @@ def check_kernels(ops, dtype_name, timed):
                 f"fused_bilinear {nm}: rel err {rel:.3e} > {tol}")
 
     Yf, fb = seen["pair_bucket"]
-    plan = ops._pair_plan
     tab = fb.table(Yf.device)
     args = (Yf, plan.i1, plan.i2, plan.row_ptr, tab, fb.d_out, fb.g, plan.cap)
 
@@ -348,7 +425,7 @@ def check_kernels(ops, dtype_name, timed):
     # Logical count, not measured traffic: the kernel skips pad pairs and
     # copies each row's 16-byte-aligned window.
     gathered = 2 * plan.n_pairs * Yf.shape[1] * Yf.element_size()
-    log(f"  pair_bucket_acc {dtype_name} pairs={plan.n_pairs} rows="
+    log(f"  {label}pair_bucket_acc {dtype_name} pairs={plan.n_pairs} rows="
         f"{plan.n_rows} camera pairs={plan.n_campair} chunks="
         f"{plan.n_chunks} d_out={fb.d_out}, bitwise repeatable: "
         f"max abs err {err:.3e}, rel {rel:.3e} (tol rel {tol:g})"
@@ -561,6 +638,196 @@ def covariance_phase(floor, card, launches):
     return {"build_s": init_s, "factorize_s": fact_s, "cop_cold_s": cop_cold,
             "cop_warm_s": cop_warm, "report_s": report_s,
             "jitter": cov.jitter, "peak_gb": peak_gb}
+
+
+def mesh_phase(card, launches, s, spec, ops, floor, x0_t, n_fixed, rn_fixed,
+               unsharded_ms):
+    """Phase 14: the point-partitioned backend (parallel/sharded.py) at
+    the C5 shape as MESH_SHARDS shards on the one card.  Raises on a
+    failed gate; returns the numbers it printed and the timed kernel
+    rows of the largest shard."""
+    import numpy as np
+    import torch
+
+    from dbat_tpu_torch.parallel.mesh import make_mesh
+    from dbat_tpu_torch.parallel.sharded import ShardedSchurOps
+    from dbat_tpu_torch.pipeline.synthetic import C5_RING
+    from dbat_tpu_torch.solve.bundle import bundle
+    from dbat_tpu_torch.solve.covariance import Covariance
+    from dbat_tpu_torch.solve.fused import fused_gna
+    from dbat_tpu_torch.solve.schur import SchurOps
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t1
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    mesh = make_mesh(["cuda:0"] * MESH_SHARDS)
+    out = {}
+    # (a) One f64 assembly and solve at x0 against the unsharded ops.
+    sh64, out["ops_f64_s"] = timed(lambda: ShardedSchurOps(
+        s, spec, mesh=mesh, dtype=torch.float64))
+    one64 = SchurOps(s, spec, dtype=torch.float64, device="cuda")
+    x0 = one64.x0()
+    st0, st1 = one64.normal(x0), sh64.normal(x0)
+    (p0, f0), (p1, f1) = st0.solve(-st0.g), st1.solve(-st1.g)
+    errs = {"g": rel(st1.g, st0.g), "p": rel(p1, p0),
+            "matvec": rel(st1.matvec(p0), st0.matvec(p0))}
+    out["step_f64_rel"] = errs
+    log(f"mesh phase on {card}: C5 as {MESH_SHARDS} shards on cuda:0 (S_pt "
+        f"{sh64.S_pt}, S_obs {sh64.S_obs}, pairs per shard "
+        f"{[sh.pair_plan.n_pairs for sh in sh64.shards]}); "
+        f"ShardedSchurOps f64 built in {out['ops_f64_s']:.3f} s")
+    log(f"  (a) one f64 step at x0 against the unsharded SchurOps, max "
+        f"|diff| / max |unsharded|: {errs} (tol {MESH_STEP_TOL}); "
+        f"factorization failed: unsharded {f0}, sharded {f1}")
+    if f0 or f1 or any(errs[k] > MESH_STEP_TOL[k] for k in errs):
+        raise RuntimeError("mesh phase (a): the sharded step is off the "
+                           "unsharded one")
+    del one64, st0, st1, p0, p1
+    # Every kernel call of one f64 assembly and solve, shard by shard,
+    # against its plain version (bundle(mesh=) in (d) runs f64), untimed.
+    log("  (a) the kernels at the shard shapes, f64:")
+    for k, calls in enumerate(capture_shard_inputs(sh64)):
+        check_calls(calls, sh64.shards[k].pair_plan, sh64.n_cb, "float64",
+                    timed=False, label=f"shard {k}: ")
+    del sh64
+
+    # (b) Every kernel call of one f32 assembly and solve, shard by shard,
+    # against its plain version; the largest shard's calls timed.
+    sh32, out["ops_f32_s"] = timed(lambda: ShardedSchurOps(
+        s, spec, mesh=mesh, dtype=torch.float32))
+    seen = capture_shard_inputs(sh32)
+    big = max(range(len(sh32.shards)),
+              key=lambda k: sh32.shards[k].pair_plan.n_pairs)
+    log(f"  (b) the kernels at the shard shapes, f32 (ShardedSchurOps f32 "
+        f"built in {out['ops_f32_s']:.3f} s; shard {big} has the most "
+        f"pairs and is timed):")
+    rows = []
+    for k, calls in enumerate(seen):
+        r = check_calls(calls, sh32.shards[k].pair_plan, sh32.n_cb,
+                        "float32", timed=k == big, label=f"shard {k}: ")
+        if k == big:
+            rows = r
+    del seen
+
+    def fixed_run(o, start):
+        r, sec = timed(lambda: fused_gna(o, start, max_iter=n_fixed,
+                                         conv_tol=0.0, stall_tol=-1.0))
+        return dict(x=r.x, iters=r.iters,
+                    rn=float(np.sqrt(r.final_rw @ r.final_rw)),
+                    ms_per_iter=1e3 * sec / r.iters,
+                    alphas=r.damping["alphas"],
+                    host_syncs=r.damping["host_syncs"])
+
+    # The unsharded fixed run from x0, the reference of a sharded one
+    # below: outside the path's launch counts.
+    x0_unsharded = fixed_run(ops, ops.x0())
+
+    # (c) The fused loops: the phase's main path starts here.
+    reset_counts()
+    res, ttc_s = timed(lambda: fused_gna(sh32, sh32.x0(), max_iter=20,
+                                         conv_tol=floor, abs_term=True))
+    rn_ttc = float(np.sqrt(res.final_rw @ res.final_rw))
+    out["ttc"] = dict(code=res.code, iters=res.iters, rn=rn_ttc, s=ttc_s)
+    log(f"  (c) fused_gna on {MESH_SHARDS} shards, f32, to the noise floor: "
+        f"code {res.code}, {res.iters} iterations, ||r_w|| {rn_ttc:.4f} <= "
+        f"floor {floor:.4f}: {rn_ttc <= floor}; {ttc_s:.3f} s")
+    if not (res.code == 0 and rn_ttc <= floor):
+        raise RuntimeError("mesh phase (c): fused_gna on the mesh did not "
+                           "reach the noise floor")
+    one32 = ShardedSchurOps(s, spec, mesh=make_mesh(["cuda:0"]),
+                            dtype=torch.float32)
+
+    # From phase 6's start: 1 shard and 8 shards, and 8 again.  The
+    # first iterations on fresh ops run slower: one untimed iteration on
+    # the 1-shard ops first (the 8-shard ops ran in (b) and above).
+    fused_gna(one32, x0_t, max_iter=1, conv_tol=0.0, stall_tol=-1.0)
+    runs = {nm: fixed_run(o, x0_t) for nm, o in (
+        ("1 shard", one32), ("8 shards", sh32), ("8 shards again", sh32))}
+    same = np.array_equal(runs["8 shards"]["x"], runs["8 shards again"]["x"])
+    shard_rel = abs(runs["8 shards"]["rn"] / runs["1 shard"]["rn"] - 1)
+    # From x0, the start of scripts/sharded_tpu_bench.py: 8 shards
+    # against the unsharded run above.
+    runs["x0: unsharded"] = x0_unsharded
+    runs["x0: 8 shards"] = fixed_run(sh32, ops.x0())
+    x0_rel = abs(runs["x0: 8 shards"]["rn"] / runs["x0: unsharded"]["rn"]
+                 - 1)
+    for nm, v in runs.items():
+        v.pop("x")
+        v["overhead_vs_phase7"] = v["ms_per_iter"] / unsharded_ms
+    out["fixed"] = runs
+    out["fixed_gaps"] = dict(
+        shards_8_vs_1=shard_rel, x0_sharded_vs_unsharded=x0_rel,
+        phase6_start_vs_unsharded=abs(runs["8 shards"]["rn"] / rn_fixed - 1),
+        bitwise=same,
+        x0_overhead=runs["x0: 8 shards"]["ms_per_iter"]
+        / runs["x0: unsharded"]["ms_per_iter"])
+    log(f"  (c) {n_fixed} fixed f32 iterations (||r_w||, ms per iteration, "
+        f"overhead against phase 7's unsharded median {unsharded_ms:.2f} "
+        f"ms, line-search steps, host syncs): "
+        + "; ".join(f"{nm}: {v['rn']!r}, {v['ms_per_iter']:.2f} ms = "
+                    f"{v['overhead_vs_phase7']:.3f}x, alphas {v['alphas']}, "
+                    f"syncs {v['host_syncs']}" for nm, v in runs.items()))
+    log(f"  (c) gaps: {out['fixed_gaps']} (gates: 8 shards vs 1 shard from "
+        f"phase 6's start and 8 shards vs unsharded from x0 within "
+        f"{MESH_RN_TOL:g}, the 8-shard run bitwise equal on a second run; "
+        f"phase 6's start vs phase 6's unsharded ||r_w|| {rn_fixed!r} is "
+        f"measured, not gated: the sharded solve's fixed 1e-3 Cholesky "
+        f"jitter damps the steps that far from the optimum)")
+    if not (same and shard_rel <= MESH_RN_TOL and x0_rel <= MESH_RN_TOL):
+        raise RuntimeError("mesh phase (c): the fixed runs failed a gate")
+
+    # (d) bundle(mesh=) in f64 against the unsharded bundle, then the
+    # COP over the shards against the unsharded COP.
+    s_m, _ = net(C5_RING, 18)
+    (_p, ok_m, it_m, s0_m, info_m), bundle_m_s = timed(lambda: bundle(
+        s_m, damping="gna", dtype="float64", mesh=mesh))
+    launches["sharded"] = read_counts()
+    s_1, _ = net(C5_RING, 18)
+    (_p, ok_1, it_1, s0_1, info_1), bundle_1_s = timed(lambda: bundle(
+        s_1, damping="gna", dtype="float64", backend="schur", device="cuda"))
+    x_rel = float(np.abs(info_m.final_x - info_1.final_x).max()
+                  / np.abs(info_1.final_x).max())
+    out["bundle"] = dict(ok=ok_m, iters=it_m, sigma0=s0_m, s=bundle_m_s,
+                         unsharded_iters=it_1, unsharded_sigma0=s0_1,
+                         unsharded_s=bundle_1_s, x_rel=x_rel)
+    log(f"  (d) bundle(gna, f64, mesh={MESH_SHARDS} shards): ok {ok_m}, "
+        f"{it_m} iterations, sigma0 {s0_m!r}, {bundle_m_s:.3f} s; "
+        f"bundle(gna, f64, schur) on one device: ok {ok_1}, {it_1} "
+        f"iterations, sigma0 {s0_1!r}, {bundle_1_s:.3f} s; max |dx| / max "
+        f"|x| {x_rel:.3e} (tol 1e-8)")
+    if not (ok_m and ok_1 and it_m == it_1
+            and abs(s0_m / s0_1 - 1) <= 1e-9 and x_rel <= 1e-8):
+        raise RuntimeError("mesh phase (d): bundle(mesh=) is off the "
+                           "unsharded bundle")
+    est = np.asarray(info_1.spec.op_x) >= 0
+    d_m, cop_m_s = timed(lambda: np.einsum(
+        "nii->ni", Covariance(s_m, info_m).cop(mesh=mesh)))
+    d_1, cop_1_s = timed(lambda: np.einsum(
+        "nii->ni", Covariance(s_1, info_1).cop()))
+    cov_rel = float(np.max(np.abs(d_m[est] / d_1[est] - 1)))
+    out["cop"] = dict(rel=cov_rel, s=cop_m_s, unsharded_s=cop_1_s)
+    log(f"  (d) COP over the shards (Covariance, factorize and cop(mesh=), "
+        f"{cop_m_s:.3f} s) against cop() on one device ({cop_1_s:.3f} s): "
+        f"max relative variance gap {cov_rel:.3e} (tol 1e-6)")
+    if not cov_rel <= 1e-6:
+        raise RuntimeError("mesh phase (d): the sharded COP is off")
+
+    # (e) Launches of the phase's main path: the sharded runs of (c)
+    # and bundle(mesh=).
+    log(f"  (e) launches in (c)'s sharded runs and bundle(mesh=): "
+        f"{launches['sharded']}")
+    missing = [nm for nm, c in launches["sharded"].items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"mesh phase: kernels not launched: {missing}")
+    out["rows"] = rows
+    return out
 
 
 def roma_net():
@@ -1491,6 +1758,12 @@ def main():
     features_out = features_phase(card, launches)
     phase_done("features", t, card)
 
+    # 14. The mesh at the C5 shape: 8 shards on the one card ---------------
+    t = time.perf_counter()
+    mesh_out = mesh_phase(card, launches, s, spec, ops, floor, x0_t,
+                          n_fixed, rn_fixed, 1e3 / med)
+    phase_done("mesh", t, card)
+
     # Kernel summary: device times per C5 outer iteration (the five
     # kernel-A calls and the one kernel-B call of one assembly + S
     # build, f32), launches summed over every path in launches_by_path.
@@ -1532,11 +1805,15 @@ def main():
     log_rows(features_out.pop("rows"), f"camcal features f64, nb "
              f"{features_out['nb']}, the script's last bundle (one assembly "
              f"+ solve)", card)
+    log_rows(mesh_out.pop("rows"), f"C5 f32, {MESH_SHARDS} shards, largest "
+             f"shard (one assembly + solve)", card)
     log(f"covariance at the C5 shape, f32, on {card}: {cov_out}")
     log(f"DBAT script at the C5 shape, f64, on {card}: {script_out}")
     log(f"PhotoModeler and PhotoScan input at the C5 shape on {card}: "
         f"{input_out}")
     log(f"feature front-end at the camcal shape on {card}: {features_out}")
+    log(f"mesh at the C5 shape, {MESH_SHARDS} shards on one card (overhead, "
+        f"not scaling) on {card}: {mesh_out}")
     log(f"total {time.perf_counter() - T0:.2f} s on {card}")
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """Where the time goes on the C5-shape main path, on one CUDA card.
 
-    python -m dbat_tpu_torch.profile_c5
+    python -m dbat_tpu_torch.profile_c5 [--shards K ...]
 
 Builds the C5-shape network of bench.py and chip_smoke.py
 (pipeline/synthetic.py C5_RING) and prints, beside the card's name and
@@ -12,13 +12,16 @@ power limit:
   2. the 10-iteration fixed run of chip_smoke.py in float32 and in
      float64: residual norm per iteration, step lengths, sigma0;
   3. a torch.profiler trace of a 3-iteration fixed run: device time by
-     kernel name and the device's idle share of the wall time.
+     kernel name and the device's idle share of the wall time;
+  4. with --shards, 1. and 3. again for the point-partitioned backend
+     (parallel/sharded.py) as K shards on the one card, for each K.
 
 Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -49,7 +52,7 @@ def stage_times(ops, x):
     p, _ = ops._solve_impl(U, V, Wb, -g, 0.0)
     from .solve.smallblas import inv3x3
 
-    Vinv = inv3x3(V)
+    Vinv = [inv3x3(v) for v in V] if isinstance(V, list) else inv3x3(V)
     stages = {
         "assemble (Jacobians, U V W, gradients)":
             lambda: ops._assemble_impl(x),
@@ -86,7 +89,11 @@ def device_profile(ops, x0_t):
     return res, wall * 1e3, rows
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--shards", type=int, nargs="*", default=[],
+                    help="also profile the sharded backend as K shards")
+    args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -118,6 +125,24 @@ def main():
               f"iteration {[round(v, 3) for v in r.res_norms]}; alphas "
               f"{r.damping['alphas']}", flush=True)
 
+    print_profile(ops, x0_t, card)
+
+    for k in args.shards:
+        from .parallel.mesh import make_mesh
+        from .parallel.sharded import ShardedSchurOps
+
+        sh = ShardedSchurOps(s, spec, mesh=make_mesh(["cuda:0"] * k),
+                             dtype=torch.float32)
+        fused_gna(sh, x0, max_iter=20, conv_tol=floor, abs_term=True)
+        print(f"{k} shards: stage wall times, one outer iteration at x0 "
+              f"({card}):")
+        for name, v in stage_times(sh, x0).items():
+            print(f"  {v:9.3f} ms  {name}", flush=True)
+        print(f"{k} shards:", end=" ")
+        print_profile(sh, x0_t, card)
+
+
+def print_profile(ops, x0_t, card):
     res, wall_ms, rows = device_profile(ops, x0_t)
     busy = sum(r[0] for r in rows)
     n_launch = sum(r[1] for r in rows)

@@ -15,8 +15,11 @@ Everything runs on one device, the card by default (`device=`): the
 solve, the f64 polish after an f32 solve and the f64 re-evaluation of
 the final residual.  The JAX package runs those two f64 steps on the
 host CPU because a TPU has no f64; the card has, so they stay on it and
-run the f64 instances of both kernels.  The point-partitioned mesh
-backend of the JAX package is not ported.
+run the f64 instances of both kernels.
+
+`mesh=` (parallel/mesh.py) runs the point-partitioned backend of
+parallel/sharded.py: the host loops of solvers.py on ShardedSchurOps,
+without the fused loop and the f64 polish, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -103,6 +106,7 @@ def bundle(
     center=None,
     polish=None,
     device=None,
+    mesh=None,
 ):
     """Run the damped bundle adjustment on a Project.
 
@@ -136,9 +140,15 @@ def bundle(
     sigma0 of the raw f32 solution.
 
     `device`: where every step runs; default the CUDA card (raises
-    without one, see device.py)."""
+    without one, see device.py).
+
+    `mesh`: run on the point-partitioned ShardedSchurOps over the mesh's
+    shards (backend "auto" then never picks dense; no fused loop, no
+    polish).  `device`, when given, must be the mesh's reducing
+    device."""
     dtype = as_dtype(dtype)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None \
+        else mesh.resolve(device)
     if center is None:
         center = dtype == torch.float32
     offset = None
@@ -153,7 +163,7 @@ def bundle(
         if rows:
             offset = np.concatenate(rows, axis=0).mean(axis=0)
     args = (project, damping, max_iter, conv_tol, abs_term, singular_test,
-            veto, pm_dof, trace, dtype, backend, fused, polish, device)
+            veto, pm_dof, trace, dtype, backend, fused, polish, device, mesh)
     if offset is None:
         return _bundle_impl(*args)
     _shift_network(project, -offset)
@@ -181,14 +191,22 @@ def ops_f64(project, info):
     """info.ops if f64, else the same backend rebuilt in f64 on its
     device from `project` (as bundle() returns it, in the world frame)
     moved into the solve's frame by info.center_offset, so that
-    info.final_x applies to it."""
+    info.final_x applies to it.  Sharded ops (parallel/sharded.py)
+    delegate to an unsharded SchurOps on the mesh's reducing device:
+    their covariance_ops() when f64 and uncentred, else one rebuilt in
+    f64 in the same way."""
     ops = info.ops
+    to_schur = getattr(ops, "covariance_ops", None)
     if ops.dtype == torch.float64:
-        return ops
+        if to_schur is None:
+            return ops
+        if info.center_offset is None:
+            return to_schur()
     p = replace(project)
     if info.center_offset is not None:
         _shift_network(p, -info.center_offset)
-    return type(ops)(p, info.spec, dtype=torch.float64, device=ops.device)
+    cls = type(ops) if to_schur is None else SchurOps
+    return cls(p, info.spec, dtype=torch.float64, device=ops.device)
 
 
 def _final_eval_f64(project, spec, device):
@@ -254,7 +272,7 @@ def _set_params(project, spec, ops, x):
 
 def _bundle_impl(project, damping, max_iter, conv_tol, abs_term,
                  singular_test, veto, pm_dof, trace, dtype, backend, fused,
-                 polish, device):
+                 polish, device, mesh):
     damping = damping.lower()
     if damping not in ("none", "gm", "gna", "lm", "lmp"):
         raise ValueError(f"Unknown damping {damping!r}")
@@ -277,11 +295,15 @@ def _bundle_impl(project, damping, max_iter, conv_tol, abs_term,
     if backend == "auto":
         # Dense N is exact and fastest while n_x^2 stays small; the
         # Schur reduced camera system wins beyond that.
-        backend = "dense" if spec.n_x <= 2000 else "schur"
+        backend = "dense" if spec.n_x <= 2000 and mesh is None else "schur"
     if fused == "auto":
-        fused = (f32 and backend == "schur" and damping in ("gna", "lm")
-                 and not veto and not trace)
-    if backend == "dense":
+        fused = (f32 and backend == "schur" and mesh is None
+                 and damping in ("gna", "lm") and not veto and not trace)
+    if mesh is not None:
+        from ..parallel.sharded import ShardedSchurOps
+
+        ops = ShardedSchurOps(project, spec, mesh=mesh, dtype=dtype)
+    elif backend == "dense":
         ops = BundleOps(project, spec, dtype=dtype, device=device)
     elif backend == "schur":
         ops = SchurOps(project, spec, dtype=dtype, device=device)
@@ -362,9 +384,9 @@ def _bundle_impl(project, damping, max_iter, conv_tol, abs_term,
     certified_abs = (res.code == solvers.OK and abs_term
                      and not res.damping.get("floor_stall", False))
     if polish is None:
-        polish = 2 if f32 and not certified_abs else 0
+        polish = 2 if f32 and mesh is None and not certified_abs else 0
     can_polish = (
-        polish > 0 and f32 and res.x is not None
+        polish > 0 and f32 and mesh is None and res.x is not None
         and res.code in (solvers.OK, solvers.TOO_MANY_ITERS,
                          solvers.LINESEARCH_FAILED)
     )
@@ -441,8 +463,15 @@ def _bundle_impl(project, damping, max_iter, conv_tol, abs_term,
     info.sigmas = sigma0 * np.asarray(project.ip_sigmas)
 
     # Posterior residual scatter-back (bundle.m:448-462), in px for IP.
-    r_unw = r_unw64 if r_unw64 is not None \
-        else ops.residuals(x.to(ops.dtype)).cpu().numpy()
+    if r_unw64 is not None:
+        r_unw = r_unw64
+    else:
+        r_unw = ops.residuals(x.to(ops.dtype)).cpu().numpy()
+        if mesh is not None:
+            # Padded sharded observation rows back to the project's order.
+            n_pad2 = r_unw.shape[0] - (ops.n_res - 2 * ops.n_obs)
+            ip = ops.unshard_obs_rows(r_unw[:n_pad2].reshape(-1, 2))
+            r_unw = np.concatenate([ip.reshape(-1), r_unw[n_pad2:]])
     n2 = 2 * ops.n_obs
     ip_res_mm = r_unw[:n2].reshape(-1, 2)
     px = ops.px_obs.cpu().numpy()

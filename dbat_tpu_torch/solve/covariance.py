@@ -39,8 +39,13 @@ Every scatter-add here has repeated targets (all images share the IO
 columns), so it runs through a SegScatter plan: in a fixed order
 without atomics on the card, so f32 results repeat bit for bit.
 
-All covariances are scaled by sigma0^2 (bundle_cov.m:213).  The mesh
-path of the JAX package (`cop(mesh=...)`) is not ported.
+All covariances are scaled by sigma0^2 (bundle_cov.m:213).
+
+After a bundle on a mesh (parallel/), the extraction runs on an
+unsharded SchurOps on the mesh's reducing device (bundle.ops_f64, the
+JAX package's covariance_ops), and `cop(mesh=...)` deals the point
+chunks to the shards: each shard runs its chunks on its device against
+copies of the factor, and the blocks come back in point order.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ class Covariance:
         self._dense_inv = None
         self._schur = None
         self._cop_plan_cache = None
+        self._cop_shard_cache = None
         #: rung of JITTER the Schur factorization used
         self.jitter = None
 
@@ -292,12 +298,14 @@ class Covariance:
         return out * self.s0_2
 
     # ------------------------------------------------------------------
-    def cop(self, chunk: int = 4096):
+    def cop(self, chunk: int = 4096, mesh=None):
         """(n_op, 3, 3) per-point posterior covariance blocks.
 
         Schur path: V^-1 + y'y per point with y = L^-1 Dinv (Ncp V^-1),
         a loop over chunks of `chunk` points on the device (the
-        icpc_mex equivalent)."""
+        icpc_mex equivalent).  With a mesh (passed, or the one the
+        bundle's ops ran on) the chunks are dealt to its shards
+        (_cop_sharded)."""
         self.factorize()
         p = self.project
         opx = np.asarray(self.spec.op_x)
@@ -312,14 +320,74 @@ class Covariance:
                         np.ix_(idx, idx)]
             return out * self.s0_2
 
-        # Plans are cached per (instance, chunk): repeat calls (the
-        # report's covariance sections, posterior_std) pay only the
-        # chunk loop.
-        if self._cop_plan_cache is None or self._cop_plan_cache[0] != chunk:
-            self._cop_plan_cache = (chunk,) + self._chunk_plans(chunk)
-        _chunk, Wv, plans = self._cop_plan_cache
-        L, Dinv = self._schur["L"], self._schur["Dinv"]
-        Vinv = self._schur["Vinv"]
+        if mesh is None:
+            mesh = getattr(self.info.ops, "mesh", None)
+        if mesh is not None:
+            out = self._cop_sharded(chunk, mesh)
+        else:
+            # Plans are cached per (instance, chunk): repeat calls (the
+            # report's covariance sections, posterior_std) pay only the
+            # chunk loop.
+            if self._cop_plan_cache is None \
+                    or self._cop_plan_cache[0] != chunk:
+                bounds = np.append(np.arange(0, p.n_op, chunk), p.n_op)
+                self._cop_plan_cache = (chunk, self._folded_coupling(),
+                                        self._chunk_plans(bounds,
+                                                          self.ops.device))
+            _chunk, Wv, plans = self._cop_plan_cache
+            sc = self._schur
+            out = self._cop_chunks(Wv, sc["L"], sc["Dinv"], sc["Vinv"],
+                                   plans).cpu().numpy()
+
+        # Zero rows/cols of fixed coordinates (they carry the identity
+        # placeholder in V).
+        est = opx >= 0
+        mask = est[:, :, None] & est[:, None, :]
+        return np.where(mask, out, 0.0) * self.s0_2
+
+    def _cop_sharded(self, chunk: int, mesh):
+        """The COP chunk loop dealt over a mesh's shards: the chunk count
+        rounded up to a multiple of the shard count, each shard a
+        contiguous run of chunks (`span` points), run on its device
+        against copies of the factor; the blocks are all-gathered in
+        shard order, so they come back in point order."""
+        n_op, n_sh = self.project.n_op, mesh.n_shards
+        chunk = min(chunk, max(-(-n_op // n_sh), 1))
+        n_chunks = -(-n_op // chunk)
+        span = -(-n_chunks // n_sh) * chunk
+        if self._cop_shard_cache is None \
+                or self._cop_shard_cache[0] != (chunk, mesh):
+            sc = self._schur
+            factors = zip(*(mesh.replicated(t) for t in (
+                self._folded_coupling(), sc["L"], sc["Dinv"], sc["Vinv"])))
+            runs = []
+            for k, factor in zip(mesh.owned, factors):
+                lo, hi = min(k * span, n_op), min((k + 1) * span, n_op)
+                bounds = np.append(np.arange(lo, hi, chunk), hi)
+                runs.append((lo, hi, factor + (self._chunk_plans(
+                    bounds, mesh.devices[k]),)))
+            self._cop_shard_cache = ((chunk, mesh), runs)
+        parts = []
+        for lo, hi, args in self._cop_shard_cache[1]:
+            blk = self._cop_chunks(*args)
+            parts.append(torch.cat([blk, blk.new_zeros(
+                (span - (hi - lo), 3, 3))]))
+        out = torch.cat(mesh.gather_shards(parts))[:n_op]
+        return out.cpu().numpy()
+
+    def _folded_coupling(self):
+        """Wv (flat): each observation's V^-1-folded coupling block
+        W_i V_j^-1, in the ops' dtype on their device.  The fold makes
+        each point block the Gram y'y plus V^-1, whose diagonal is a sum
+        of squares, non-negative in f32 by construction (the V^-1 G V^-1
+        triple product is not)."""
+        sc = self._schur
+        return torch.einsum("kab,kbc->kac", sc["Wb"],
+                            self.ops._gather_pt(sc["Vinv"])).reshape(-1)
+
+    def _cop_chunks(self, Wv, L, Dinv, Vinv, plans):
+        """(hi - lo, 3, 3) blocks of the points [lo, hi) that `plans`
+        cover, V^-1 + y'y per point, one chunk at a time."""
         n_c = self.ops.n_c
         blks = []
         for lo, hi, plan in plans:
@@ -330,44 +398,31 @@ class Covariance:
                 L, Dinv[:, None] * Ncp.view(n_c, w * 3), upper=False)
             y = y.view(n_c, w, 3)
             blks.append(Vinv[lo:hi] + torch.einsum("cja,cjb->jab", y, y))
-        out = torch.cat(blks).cpu().numpy()
+        if not blks:
+            return Vinv.new_zeros((0, 3, 3))
+        return torch.cat(blks)
 
-        # Zero rows/cols of fixed coordinates (they carry the identity
-        # placeholder in V).
-        est = opx >= 0
-        mask = est[:, :, None] & est[:, None, :]
-        return np.where(mask, out, 0.0) * self.s0_2
-
-    def _chunk_plans(self, chunk: int):
-        """The COP chunk loop's plans: (Wv, [(lo, hi, scatter), ...]).
-
-        Wv (flat) holds each observation's V^-1-folded coupling block
-        W_i V_j^-1, in the ops' dtype on the device.  The fold makes each
-        point block the Gram y'y plus V^-1, whose diagonal is a sum of
-        squares, non-negative in f32 by construction (the V^-1 G V^-1
-        triple product is not).  Chunk [lo, hi) of points scatters Wv
-        into its (n_c, hi - lo, 3) Ncp with its own SegScatter: all
-        rays of a point add into the same IO-column rows."""
+    def _chunk_plans(self, bounds, device):
+        """The COP chunk loop's plans on `device`, [(lo, hi, scatter),
+        ...] for the chunks [bounds[k], bounds[k+1]) of points: each
+        chunk scatters Wv into its (n_c, hi - lo, 3) Ncp with its own
+        SegScatter (all rays of a point add into the same IO-column
+        rows)."""
         ops = self.ops
         p = self.project
-        Vinv, Wb = self._schur["Vinv"], self._schur["Wb"]
-        n_c, nb, n_op = ops.n_c, ops.n_cb, p.n_op
-        Wv = torch.einsum("kab,kbc->kac", Wb, ops._gather_pt(Vinv))
-
         obs_pt = np.asarray(p.obs_pt)
         icols = ops.icols.cpu().numpy()
         cam_cols = icols[np.asarray(p.obs_img)]
         order = np.argsort(obs_pt, kind="stable")
-        bounds = np.append(np.arange(0, n_op, chunk), n_op)
         cuts = np.searchsorted(obs_pt[order], bounds)
         plans = []
         for k in range(len(bounds) - 1):
             lo, hi = int(bounds[k]), int(bounds[k + 1])
             sel = order[cuts[k]:cuts[k + 1]]
             plans.append((lo, hi, _ncp_scatter(
-                cam_cols[sel], obs_pt[sel] - lo, hi - lo, n_c, sel,
-                ops.n_obs, nb, ops.device)))
-        return Wv.reshape(-1), plans
+                cam_cols[sel], obs_pt[sel] - lo, hi - lo, ops.n_c, sel,
+                ops.n_obs, ops.n_cb, device)))
+        return plans
 
     # ------------------------------------------------------------------
     def posterior_std(self):

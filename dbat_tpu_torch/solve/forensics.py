@@ -29,7 +29,12 @@ def _suspects(w, V, n, deficient):
 
 def numerical_rank_analysis(ops, x, tol_factor: float = 1e4):
     """Estimate the numerical rank of the scaled normal matrix and
-    suspect parameters from small-eigenvalue eigenvectors."""
+    suspect parameters from small-eigenvalue eigenvectors.  Sharded ops
+    (parallel/sharded.py) are analysed through their unsharded
+    covariance_ops(): the same normal equations, with global point
+    indices."""
+    if hasattr(ops, "covariance_ops"):
+        ops = ops.covariance_ops()
     st = ops.normal(x)
     if not hasattr(st, "N"):
         return _schur_rank_analysis(ops, st, tol_factor)

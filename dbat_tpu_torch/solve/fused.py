@@ -53,7 +53,8 @@ def fused_gna(ops, x0, max_iter: int = 20, conv_tol: float = 1e-6,
               abs_term: bool = False, mu: float = 0.1,
               alpha_min: float = 1e-9, stall_tol: float = None
               ) -> SolveResult:
-    """Gauss-Newton-Armijo on `ops` (a SchurOps), on its device.
+    """Gauss-Newton-Armijo on `ops` (a SchurOps or a ShardedSchurOps),
+    on its device.
 
     `stall_tol`: f32 floor-stall threshold (two consecutive iterations
     with relative residual decrease below it terminate OK).  Default:
@@ -163,8 +164,8 @@ def fused_lm(ops, x0, max_iter: int = 20, conv_tol: float = 1e-6,
              abs_term: bool = False, lambda0: float = -1e-10,
              lambda_min: float = -1e-10, stall_tol: float = None
              ) -> SolveResult:
-    """Classic lambda-version Levenberg-Marquardt on `ops` (a SchurOps),
-    on its device.
+    """Classic lambda-version Levenberg-Marquardt on `ops` (a SchurOps or
+    a ShardedSchurOps), on its device.
 
     Same damping schedule and status codes as
     solvers.levenberg_marquardt: negative lambda0/lambda_min auto-scale
@@ -192,9 +193,7 @@ def fused_lm(ops, x0, max_iter: int = 20, conv_tol: float = 1e-6,
 
     x = torch.as_tensor(x0, device=dev).to(dtype)
     U, V, Wb, gc, gp, rw = ops._assemble_impl(x)
-    dU = torch.diagonal(U)
-    dV = torch.diagonal(V, dim1=-2, dim2=-1) * ops.op_mask
-    tr = nd(float(dU.sum() + dV.sum()))
+    tr = nd(ops._trace_diag(U, V))
     syncs += 1
     n_x = nd(ops.n_x)
     lam0 = abs(nd(lambda0)) * tr / n_x if lambda0 < 0 else nd(lambda0)

@@ -29,7 +29,9 @@ class BundleOps:
     public method is a function of the unknown vector x only.
 
     device: where the tensors live and the work runs; default CUDA,
-    which raises on a machine without a card (see device.py)."""
+    which raises on a machine without a card (see device.py).  The
+    mesh backends (parallel/) build on it with the mesh's reducing
+    device."""
 
     def __init__(self, project, spec: SerialSpec, dtype=torch.float64,
                  device=None):

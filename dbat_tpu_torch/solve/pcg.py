@@ -8,6 +8,8 @@ Never forms S = U - sum W V^-1 W': each CG iteration applies
 with per-observation block products and the SchurOps segment sums and
 camera scatter, which run in a fixed order on the card (SegSum levels,
 SegScatter; no atomics), so an f32 solve repeats bit for bit.  The
+per-observation steps go through `ops._obs_sum`, so the same code runs
+on the legacy mesh path (parallel/obs_mesh.py) shard by shard.  The
 preconditioner is block-Jacobi: the per-image EO 6x6 diagonal blocks of
 S factored with batched Cholesky, scalar Jacobi on the shared IO
 columns.
@@ -28,12 +30,17 @@ from .smallblas import chol3x3
 
 def schur_matvec(ops, U, Vinv, Wb, p, lam):
     """S @ p without materializing S.  p: (n_c,)."""
-    pg = ops._cam_cols_per_obs(p)                        # (n_obs, n_cb)
-    t = torch.einsum("nab,na->nb", Wb, pg)               # W' p per obs
-    s = torch.einsum("jab,jb->ja", Vinv, ops._seg_pt(t))  # V^-1 (.)
-    back = torch.einsum("nab,nb->na", Wb, ops._gather_pt(s))
-    out = ops._scatter_cam(ops._seg_img(back))
+    t = ops._obs_sum(ops._obs_down, Wb, ops._pc_cols(p))  # sum W' p
+    s = torch.einsum("jab,jb->ja", Vinv, t)              # V^-1 (.)
+    out = ops._scatter_cam(ops._obs_sum(ops._obs_up, Wb, s))
     return U @ p + lam * p - out
+
+
+def _obs_yy(ob, Wb, Lv3):
+    """Per-image sums of Y_i Y_i', Y_i = W_i L_pt(i), over the
+    observation set ob (schur.py)."""
+    Y = torch.einsum("nab,nbc->nac", Wb, Lv3[ob.obs_pt])
+    return ob._seg_img(torch.einsum("nac,nbc->nab", Y, Y))
 
 
 def block_jacobi_factors(ops, U, Vinv, Wb, lam):
@@ -42,9 +49,7 @@ def block_jacobi_factors(ops, U, Vinv, Wb, lam):
     Cholesky, plus scalar Jacobi on the shared IO columns (a scalar
     diagonal keeps the preconditioner symmetric positive definite)."""
     nc, dt, dev = ops.n_c, ops.dtype, ops.device
-    Lv3 = chol3x3(Vinv)
-    Y = torch.einsum("nab,nbc->nac", Wb, ops._gather_pt(Lv3))
-    Dimg = ops._seg_img(torch.einsum("nac,nbc->nab", Y, Y))
+    Dimg = ops._obs_sum(_obs_yy, Wb, chol3x3(Vinv))
     icols = ops.icols  # (n_img, n_cb), fixed columns at the dump nc
 
     # Scalar diagonal of S for every column.

@@ -1,5 +1,5 @@
 """Schur-complement reduced camera system (counterpart of
-dbat_tpu/solve/schur.py, single-device path).
+dbat_tpu/solve/schur.py).
 
     N = [ U   Wc ]     U : (n_c,n_c) dense camera/IO block
         [ Wc' V  ]     V : (n_op,3,3) block-diagonal point blocks
@@ -18,9 +18,15 @@ repeat bit for bit from run to run.
 
 `_solve_pcg_impl` solves the same system without forming S (pcg.py).
 
+Every per-observation step is a method of an observation set `ob`
+(`_obs_*`): on one device the ops themselves, on the JAX package's
+legacy mesh path (`SchurOps(mesh=, pair_chunk=)`, which builds a
+parallel/obs_mesh.py ObsMeshSchurOps) each shard's slice of the
+observations; `_obs_sum` adds a step's per-image or per-point sums
+over the sets.
+
 Deferred (same numbers through this general path): the packed-R plan
-for uniform ray counts, the `_img_block6` windowed scatter, the
-chunked-scan mesh plan.
+for uniform ray counts and the `_img_block6` windowed scatter.
 """
 
 from __future__ import annotations
@@ -59,13 +65,58 @@ def _build_pairs(obs_pt: np.ndarray):
     return order[i1s], order[i2s]
 
 
+def camera_plans(spec, cam_active, ukey, n_img: int, device):
+    """The camera-side plans of the Schur backends (this module and
+    parallel/sharded.py).
+
+    icols (n_img, nb): x indices of each image's active [IO, EO]
+    columns, fixed ones sent to the dump column nc.  Scatter plans
+    (SegScatter: each target written once, its sources summed in a
+    fixed order): per-image camera entries into (nc+1,); per-image
+    blocks into the flat (nc+1)^2 U; and for S the per-image blocks,
+    the blocks of the camera pairs `ukey` (img1 * n_img + img2) and
+    their transposes, read from [Dimg; acc] in one plan.  Returns
+    (icols tensor, camera scatter, U scatter, S scatter)."""
+    nc = spec.n_io + spec.n_eo
+    n1 = nc + 1
+    img_cols = np.concatenate(
+        [np.asarray(spec.io_x), np.asarray(spec.eo_x)], axis=1
+    ).astype(np.int64)[:, cam_active]
+    icols = np.where(img_cols >= 0, img_cols, nc)
+    img_blk = (icols[:, :, None] * n1 + icols[:, None, :]).reshape(-1)
+    c1, c2 = icols[ukey // n_img], icols[ukey % n_img]
+    cp_blk = (c1[:, :, None] * n1 + c2[:, None, :]).reshape(-1)
+    cp_blk_t = (c2[:, None, :] * n1 + c1[:, :, None]).reshape(-1)
+    acc_src = img_blk.size + np.arange(cp_blk.size)
+    s_scatter = SegScatter(
+        np.concatenate([img_blk, cp_blk, cp_blk_t]),
+        src=np.concatenate([np.arange(img_blk.size), acc_src, acc_src]),
+        n_src=img_blk.size + cp_blk.size, device=device)
+    return (torch.as_tensor(icols, device=device),
+            SegScatter(icols, device=device),
+            SegScatter(img_blk, device=device), s_scatter)
+
+
 class SchurOps(BundleOps):
     """BundleOps with a Schur-complement normal backend.
 
-    refine_iters: iterative-refinement steps of the f32 reduced solve."""
+    refine_iters: iterative-refinement steps of the f32 reduced solve.
+    mesh, pair_chunk: with a mesh, `SchurOps(...)` builds the legacy
+    mesh path's ObsMeshSchurOps (parallel/obs_mesh.py, see __new__);
+    unused on one device."""
+
+    #: the mesh of the legacy mesh path; None on one device
+    mesh = None
+
+    def __new__(cls, *args, mesh=None, **kwargs):
+        if mesh is not None and cls is SchurOps:
+            from ..parallel.obs_mesh import ObsMeshSchurOps
+
+            cls = ObsMeshSchurOps
+        return super().__new__(cls)
 
     def __init__(self, project, spec, dtype=torch.float64, device=None,
-                 refine_iters: int = 2):
+                 refine_iters: int = 2, mesh=None, pair_chunk: int = 32768):
         super().__init__(project, spec, dtype=dtype, device=device)
         dev = self.device
         self.refine_iters = refine_iters
@@ -114,9 +165,6 @@ class SchurOps(BundleOps):
         i1, i2, key = i1[order], i2[order], key[order]
         ukey, cp_of_pair = np.unique(key, return_inverse=True)
         self.n_campair = len(ukey)
-        self._pair_plan = PairBucketPlan(
-            i1, i2, cp_of_pair.reshape(-1), self.n_campair, self.n_obs,
-            device=dev, nb=nb, dtype=self.dtype) if self.n_pairs else None
 
         d_y = nb * 3
         self._fb_u = FlatBilinear(2 * nb, 2 * nb, ata_terms(2, nb), nb * nb)
@@ -125,40 +173,25 @@ class SchurOps(BundleOps):
         self._fb_y = FlatBilinear(d_y, 9, matmul_terms(nb, 3, 3), d_y)
         self._fb_pair = FlatBilinear(d_y, d_y, abt_terms(nb, 3, nb), nb * nb)
 
+        self._obs_plans(project, i1, i2, cp_of_pair.reshape(-1))
+        self.icols, self._cam_scatter, self._u_scatter, self._s_scatter = \
+            camera_plans(spec, cam_active, ukey, project.n_img, dev)
+        self._diag_idx = torch.arange(nc, device=dev) * (nc + 2)
+        #: host syncs made by the f32 jitter ladder (one per rung tried)
+        self.host_syncs = 0
+
+    def _obs_plans(self, project, i1, i2, cp):
+        """The per-observation plans: the point and image SegSums, and
+        kernel B's plan of the observation pairs (i1, i2) with camera
+        pairs cp."""
+        dev = self.device
+        self._pair_plan = PairBucketPlan(
+            i1, i2, cp, self.n_campair, self.n_obs, device=dev,
+            nb=self.n_cb, dtype=self.dtype) if self.n_pairs else None
         self._seg_pt = SegSum(np.asarray(project.obs_pt), self.n_pt,
                               device=dev)
         self._seg_img = SegSum(np.asarray(project.obs_img), project.n_img,
                                device=dev)
-
-        # Camera columns per image: x indices of the active [IO, EO]
-        # columns, with fixed ones sent to the dump column nc.
-        img_cols = np.concatenate(
-            [np.asarray(spec.io_x), np.asarray(spec.eo_x)], axis=1
-        ).astype(np.int64)[:, cam_active]
-        icols = np.where(img_cols >= 0, img_cols, nc)
-        self.icols = torch.as_tensor(icols, device=dev)  # (n_img, nb)
-        # Scatter plans (SegScatter: each target written once, its
-        # sources summed in a fixed order): per-image camera entries
-        # into (nc+1,); per-image blocks into the flat (nc+1)^2 U; and
-        # for S the per-image blocks, the camera-pair fill-in blocks and
-        # their transposes, read from [Dimg; acc] in one plan.
-        n1 = nc + 1
-        self._cam_scatter = SegScatter(icols, device=dev)
-        img_blk = (icols[:, :, None] * n1 + icols[:, None, :]).reshape(-1)
-        self._u_scatter = SegScatter(img_blk, device=dev)
-        c1 = icols[ukey // project.n_img]
-        c2 = icols[ukey % project.n_img]
-        cp_blk = (c1[:, :, None] * n1 + c2[:, None, :]).reshape(-1)
-        cp_blk_t = (c2[:, None, :] * n1 + c1[:, :, None]).reshape(-1)
-        n_img_blk = img_blk.size
-        acc_src = n_img_blk + np.arange(cp_blk.size)
-        self._s_scatter = SegScatter(
-            np.concatenate([img_blk, cp_blk, cp_blk_t]),
-            src=np.concatenate([np.arange(n_img_blk), acc_src, acc_src]),
-            n_src=n_img_blk + cp_blk.size, device=dev)
-        self._diag_idx = torch.arange(nc, device=dev) * (n1 + 1)
-        #: host syncs made by the f32 jitter ladder (one per rung tried)
-        self.host_syncs = 0
 
     # ------------------------------------------------------------------
     def _gather_pt(self, rows):
@@ -192,46 +225,63 @@ class SchurOps(BundleOps):
     # ------------------------------------------------------------------
     # Assembly
     # ------------------------------------------------------------------
-    def _assemble_impl(self, x):
-        """(U, V, Wb, gc, gp, rw) of the Gauss-Newton system at x."""
-        io, eo, op = self.params_of_x(x)
-        op_obs = self._gather_pt(op)
-        w = self.w_ip.unsqueeze(-1)
+    def _obs_sum(self, fn, Wb, *args):
+        """fn(ob, Wb, *args): one per-observation step's per-image or
+        per-point sums over the observation set ob, here the ops
+        themselves (the mesh path adds them over its shards)."""
+        return fn(self, Wb, *args)
+
+    def _obs_normal(self, ob, io, eo, op, op_mask):
+        """Over ob's observations: per-image sums of the U blocks and
+        the camera gradient, per-point sums of the V blocks and the point
+        gradient, the W blocks and the weighted residuals."""
+        op_obs = op[ob.obs_pt]
+        w = ob.w_ip.unsqueeze(-1)
         if self._has_active_io:
             v, jio, jeo, jop = self._jac_fn(
-                io[self.obs_img], eo[self.obs_img], op_obs,
-                self.ip_px, self.px_obs)
-            A = torch.cat([jio, jeo], 2)[:, :, self.cam_active] * w
+                io[ob.obs_img], eo[ob.obs_img], op_obs,
+                ob.ip_px, ob.px_obs)
+            A = torch.cat([jio, jeo], 2)[:, :, ob.cam_active] * w
         else:
             v, jeo, jop = self._jac_eo_op_fn(
-                io[self.obs_img], eo[self.obs_img], op_obs,
-                self.ip_px, self.px_obs)
+                io[ob.obs_img], eo[ob.obs_img], op_obs,
+                ob.ip_px, ob.px_obs)
             A = jeo * w
         # Fixed point coordinates masked out of B.
-        B = jop * w * self._gather_pt(self.op_mask).unsqueeze(1)
-        vw = v * self.w_ip
+        B = jop * w * op_mask[ob.obs_pt].unsqueeze(1)
+        vw = v * ob.w_ip
 
-        nc, nb = self.n_c, self.n_cb
+        nb = self.n_cb
         n = A.shape[0]
         Af = A.reshape(n, 2 * nb)
         Bf = B.reshape(n, 6)
-
-        # Per-image payload: U blocks + camera gradient; per-point
-        # payload: V blocks + point gradient.
         gA = torch.einsum("nka,nk->na", A, vw)
-        img_red = self._seg_img(torch.cat([self._fb_u(Af, Af), gA], 1))
+        img_red = ob._seg_img(torch.cat([self._fb_u(Af, Af), gA], 1))
+        gB = torch.einsum("nka,nk->na", B, vw)
+        pt_red = ob._seg_pt(torch.cat([self._fb_v(Bf, Bf), gB], 1))
+        # W: per-observation camera-point cross blocks.
+        Wb = self._fb_w(Af, Bf).reshape(n, nb, 3)
+        return img_red, pt_red, Wb, vw
+
+    def _assemble_impl(self, x):
+        """(U, V, Wb, gc, gp, rw) of the Gauss-Newton system at x."""
+        io, eo, op = self.params_of_x(x)
+        img_red, pt_red, Wb, vw = self._obs_normal(self, io, eo, op,
+                                                   self.op_mask)
+        return self._normal_system(x, img_red, pt_red, Wb, vw.reshape(-1))
+
+    def _normal_system(self, x, img_red, pt_red, Wb, vw):
+        """(U, V, Wb, gc, gp, rw) from the observations' per-image sums
+        img_red (U blocks, camera gradient), per-point sums pt_red (V
+        blocks, point gradient) and weighted residuals vw: the camera
+        scatters, the priors and the fixed point coordinates."""
+        nc, nb = self.n_c, self.n_cb
         U = torch.zeros((nc + 1) ** 2, dtype=self.dtype, device=self.device)
         self._u_scatter.add_into(U, img_red[:, : nb * nb].reshape(-1))
         U = U.view(nc + 1, nc + 1)[:nc, :nc]
         gc = self._scatter_cam(img_red[:, nb * nb:])
-
-        gB = torch.einsum("nka,nk->na", B, vw)
-        pt_red = self._seg_pt(torch.cat([self._fb_v(Bf, Bf), gB], 1))
         V = pt_red[:, :9].reshape(-1, 3, 3)
         gp = pt_red[:, 9:]
-
-        # W: per-observation camera-point cross blocks.
-        Wb = self._fb_w(Af, Bf).reshape(n, nb, 3)
 
         # Priors.  Each x index has at most one prior observation (only
         # a parameter's leading entry carries it, core/serial.py), so
@@ -256,7 +306,7 @@ class SchurOps(BundleOps):
         V = V * m[:, :, None] * m[:, None, :] + eye3 * (1.0 - m)[:, :, None]
         gp = gp * m
 
-        rw = torch.cat([vw.reshape(-1), r_pr])
+        rw = torch.cat([vw, r_pr])
         return U, V, Wb, gc, gp, rw
 
     # ------------------------------------------------------------------
@@ -265,45 +315,62 @@ class SchurOps(BundleOps):
 
         Vinv_j = L_j L_j' (closed-form 3x3 Cholesky), Y_i = W_i L_j per
         observation.  Diagonal terms Y_i Y_i' aggregate per image; the
-        strict pairs (i1 before i2) are summed per camera pair by
-        kernel B and scattered into S twice, as the block and its
-        transpose."""
-        nc, nb = self.n_c, self.n_cb
+        strict pairs (i1 before i2) are summed per camera pair and
+        scattered into S twice, as the block and its transpose."""
+        nc = self.n_c
         n1 = nc + 1
         Lvf = chol3x3(Vinv).reshape(-1, 9)
-        Wf = Wb.reshape(-1, nb * 3)
-        Yf = self._fb_y(Wf, self._gather_pt(Lvf))  # (n_obs, nb*3)
-
-        Df = self._fb_pair(Yf, Yf)  # (n_obs, nb*nb)
-        Dimg = self._seg_img(Df)
-
+        fill = self._fill_in(Lvf, Wb)
         S = torch.zeros(n1 * n1, dtype=self.dtype, device=self.device)
         S.view(n1, n1)[:nc, :nc] = U
         S[self._diag_idx] += lam
+        self._s_scatter.add_into(S, fill, alpha=-1.0)
+        return S.view(n1, n1)[:nc, :nc]
+
+    def _obs_Y(self, ob, Wb, Lvf):
+        """Y_i = W_i L_pt(i) (flat) over ob's observations, and their
+        per-image sums of Y_i Y_i'."""
+        Yf = self._fb_y(Wb.reshape(-1, self.n_cb * 3), Lvf[ob.obs_pt])
+        return Yf, ob._seg_img(self._fb_pair(Yf, Yf))
+
+    def _fill_in(self, Lvf, Wb):
+        """[per-image Y Y' sums; per-camera-pair sums of Y_i1 Y_i2'],
+        flat, as _s_scatter reads them; the pair sums by kernel B."""
+        Yf, Dimg = self._obs_Y(self, Wb, Lvf)
         parts = [Dimg.reshape(-1)]
         if self._pair_plan is not None:
             parts.append(self._pair_plan(Yf, self._fb_pair).reshape(-1))
-        self._s_scatter.add_into(S, torch.cat(parts), alpha=-1.0)
-        return S.view(n1, n1)[:nc, :nc]
+        return torch.cat(parts)
+
+    def _obs_rhs(self, ob, Wb, Vinv, rp):
+        """Per-image sums of W_i (Vinv rp)_pt(i) over ob's observations."""
+        Vg = Vinv.reshape(-1, 9)[ob.obs_pt].reshape(-1, 3, 3)
+        t = torch.einsum("nab,nb->na", Vg, rp[ob.obs_pt])
+        return ob._seg_img(torch.einsum("nab,nb->na", Wb, t))
+
+    def _obs_up(self, ob, Wb, P):
+        """Per-image sums of W_i P_pt(i) over ob's observations."""
+        return ob._seg_img(torch.einsum("nab,nb->na", Wb, P[ob.obs_pt]))
+
+    def _obs_down(self, ob, Wb, pcc):
+        """Per-point sums of W_i' pc over ob's observations; pcc: each
+        image's camera-block entries of pc (_pc_cols)."""
+        return ob._seg_pt(torch.einsum("nab,na->nb", Wb, pcc[ob.obs_img]))
+
+    def _pc_cols(self, pc):
+        """(n_img, n_cb) camera-block entries of a camera vector pc."""
+        pc_pad = torch.cat([pc, torch.zeros(1, dtype=pc.dtype,
+                                            device=pc.device)])
+        return pc_pad[self.icols]
 
     def _reduce_rhs(self, Vinv, Wb, rc, rp):
         """rc_tilde = rc - sum_i W_i (Vinv rp)_pt(i), per-image sums."""
-        Vg = self._gather_pt(Vinv.reshape(-1, 9)).reshape(-1, 3, 3)
-        t = torch.einsum("nab,nb->na", Vg, self._gather_pt(rp))
-        contrib = torch.einsum("nab,nb->na", Wb, t)  # (n_obs, n_cb)
-        return rc - self._scatter_cam(self._seg_img(contrib))
-
-    def _cam_cols_per_obs(self, pc):
-        """Per-observation camera-block entries of a camera vector pc."""
-        pc_pad = torch.cat([pc, torch.zeros(1, dtype=pc.dtype,
-                                            device=pc.device)])
-        return pc_pad[self.icols][self.obs_img]
+        return rc - self._scatter_cam(self._obs_sum(self._obs_rhs, Wb,
+                                                    Vinv, rp))
 
     def _backsub(self, Vinv, Wb, rp, pc):
         """pp = Vinv (rp - W' pc): batched 3x3 point back-substitution."""
-        pcg = self._cam_cols_per_obs(pc)  # (n_obs, n_cb)
-        down = torch.einsum("nab,na->nb", Wb, pcg)  # (n_obs, 3)
-        rp_t = rp - self._seg_pt(down)
+        rp_t = rp - self._obs_sum(self._obs_down, Wb, self._pc_cols(pc))
         return torch.einsum("nab,nb->na", Vinv, rp_t) * self.op_mask
 
     def _solve_impl(self, U, V, Wb, rhs, lam):
@@ -383,14 +450,25 @@ class SchurOps(BundleOps):
     def _matvec_impl(self, U, V, Wb, p):
         """N p without forming N."""
         pc, P = self.split_x(p)
-        pcg = self._cam_cols_per_obs(pc)
         yc = U @ pc
-        up = torch.einsum("nab,nb->na", Wb, self._gather_pt(P))
-        yc = yc + self._scatter_cam(self._seg_img(up))
+        yc = yc + self._scatter_cam(self._obs_sum(self._obs_up, Wb, P))
         yp = torch.einsum("jab,jb->ja", V, P)
-        yp = yp + self._seg_pt(torch.einsum("nab,na->nb", Wb, pcg))
+        yp = yp + self._obs_sum(self._obs_down, Wb, self._pc_cols(pc))
         yp = yp * self.op_mask
         return self.join_x(yc, yp)
+
+    def _diag_parts(self, U, V):
+        return torch.diagonal(U), \
+            torch.diagonal(V, dim1=-2, dim2=-1) * self.op_mask
+
+    def _diag(self, U, V):
+        """diag(N) as an x vector."""
+        return self.join_x(*self._diag_parts(U, V))
+
+    def _trace_diag(self, U, V) -> float:
+        """trace(N) (the LM lambda scale); one host read."""
+        dU, dV = self._diag_parts(U, V)
+        return float(dU.sum() + dV.sum())
 
     # ------------------------------------------------------------------
     def normal(self, x):
@@ -410,17 +488,11 @@ class SchurNormalState:
         self.g = ops.join_x(gc, gp)
         self.n_x = ops.n_x
 
-    def _diag_parts(self):
-        dV = torch.diagonal(self.V, dim1=-2, dim2=-1) * self.ops.op_mask
-        return torch.diagonal(self.U), dV
-
     def diag(self):
-        dU, dV = self._diag_parts()
-        return self.ops.join_x(dU, dV)
+        return self.ops._diag(self.U, self.V)
 
     def trace_diag(self):
-        dU, dV = self._diag_parts()
-        return float(dU.sum() + dV.sum())
+        return self.ops._trace_diag(self.U, self.V)
 
     def matvec(self, p):
         return self.ops._matvec_impl(self.U, self.V, self.Wb, p)

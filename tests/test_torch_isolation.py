@@ -38,7 +38,10 @@ PORT_MODULES = ("solve/normal_state.py", "solve/forensics.py",
                 "features/render.py", "features/detect.py",
                 "features/describe.py", "features/match.py",
                 "features/tracks.py", "features/pipeline.py",
-                "plotting/__init__.py", "plotting/plots.py")
+                "plotting/__init__.py", "plotting/plots.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharded.py", "parallel/distributed.py",
+                "parallel/obs_mesh.py")
 
 
 def _port_python_files():
@@ -74,6 +77,26 @@ def test_no_jax_or_reference_package_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "dbat_tpu"), (path, mod)
+
+
+def test_parallel_modules_import_without_jax():
+    """dbat_tpu_torch.parallel.* imports in a fresh interpreter with no
+    JAX module loaded before or after."""
+    code = ("import sys\n"
+            "import dbat_tpu_torch.parallel\n"
+            "import dbat_tpu_torch.parallel.mesh\n"
+            "import dbat_tpu_torch.parallel.sharded\n"
+            "import dbat_tpu_torch.parallel.distributed\n"
+            "import dbat_tpu_torch.parallel.obs_mesh\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dbat_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_kernels_need_no_torch_extension_build():

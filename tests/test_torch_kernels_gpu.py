@@ -444,3 +444,117 @@ def test_feature_front_end_on_the_card_matches_the_cpu():
     assert gap["valid_equal"] and gap["xy_err"] <= 1e-3
     assert gap["desc_err"] <= 1e-5 and gap["n_matches"] > 400
     assert gap["n_differ"] <= 0.005 * gap["n_matches"]
+
+
+@pytest.mark.gpu
+def test_mesh_on_the_card_matches_the_cpu():
+    """The point-partitioned backend on 4 shards of the card against the
+    same 4 shards on the CPU, f64: g and the step to 1e-9 of their
+    largest entry, one bundle(mesh=) with the same iterations, sigma0
+    within 1e-9 relative and x within 1e-9 of its largest entry; both
+    kernels launch once per shard call."""
+    from dbat_tpu_torch.parallel.mesh import make_mesh
+    from dbat_tpu_torch.parallel.sharded import ShardedSchurOps
+    from dbat_tpu_torch.solve.bundle import bundle
+
+    _card()
+    out = {}
+    for where in ("cuda:0", "cpu"):
+        s, spec = _small_net()
+        ops = ShardedSchurOps(s, spec, mesh=make_mesh([where] * 4))
+        a0, b0 = fused_bilinear.launches, pair_bucket_acc.launches
+        st = ops.normal(ops.x0())
+        p, failed = st.solve(-st.g)
+        assert not failed
+        if where != "cpu":
+            torch.cuda.synchronize()
+            # Assembly: U, V, W per shard; S: Y and Y Y' per shard.
+            assert fused_bilinear.launches - a0 == 5 * 4
+            assert pair_bucket_acc.launches - b0 == 4
+        s, _spec = _small_net()
+        _p, ok, iters, sigma0, info = bundle(s, damping="gna",
+                                             mesh=make_mesh([where] * 4))
+        out[where] = (st.g.cpu().numpy(), p.cpu().numpy(), ok, iters,
+                      sigma0, info.final_x)
+    card, cpu = out["cuda:0"], out["cpu"]
+    for a, b in zip(card[:2], cpu[:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+    assert card[2] and card[2:4] == cpu[2:4]
+    assert card[4] == pytest.approx(cpu[4], rel=1e-9)
+    np.testing.assert_allclose(card[5], cpu[5], rtol=0,
+                               atol=1e-9 * np.abs(cpu[5]).max())
+
+
+@pytest.mark.gpu
+def test_legacy_mesh_on_the_card_matches_the_cpu():
+    """The legacy mesh path (SchurOps(mesh=), observation shards, pair
+    chunks) on 4 shards of the card against the same on the CPU, f64:
+    g, S and the direct step to 1e-9 of their largest entry; on the
+    card the PCG step within tests/test_pcg.py's bounds of the direct
+    one (1e-5 relative, 1e-6 of its largest entry: PCG stops at 1e-10
+    of its residual, so card and CPU iterates part at ~1e-8); kernel A
+    launches per shard and per pair chunk, kernel B never (the chunks
+    fold the pairs)."""
+    from dbat_tpu_torch.parallel.mesh import make_mesh
+
+    _card()
+    out = {}
+    for where in ("cuda:0", "cpu"):
+        s, spec = _small_net()
+        ops = SchurOps(s, spec, mesh=make_mesh([where] * 4),
+                       pair_chunk=4096)
+        a0, b0 = fused_bilinear.launches, pair_bucket_acc.launches
+        x0 = ops.x0()
+        U, V, Wb, gc, gp, _rw = ops._assemble_impl(x0)
+        g = ops.join_x(gc, gp)
+        S = ops._schur_S(U, torch.linalg.inv(V), Wb, 0.0)
+        p, _L = ops._solve_impl(U, V, Wb, -g, 0.0)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            # U, V, W per shard; Y, Y Y' per shard and a product per
+            # shard and chunk, in _schur_S and again in _solve_impl.
+            n_chunk = len(ops._chunks)
+            assert fused_bilinear.launches - a0 == 4 * (3 + 2 * (2 + n_chunk))
+            assert pair_bucket_acc.launches == b0
+            q, (_it, rel) = ops._solve_pcg_impl(U, V, Wb, -g, 0.0)
+            assert rel <= 1e-10
+            np.testing.assert_allclose(
+                q.cpu().numpy(), p.cpu().numpy(), rtol=1e-5,
+                atol=1e-6 * p.abs().max().item())
+        out[where] = [t.cpu().numpy() for t in (g, S, p)]
+    for a, b in zip(out["cuda:0"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,_tol_a,tol_b", DTYPES)
+def test_kernel_b_on_a_shard_plan(dtype, _tol_a, tol_b):
+    """Kernel B on one shard's PairBucketPlan (its pad pairs index the
+    shard's S_obs, outside Y) against the plain version (in f64 on the
+    same inputs)."""
+    from dbat_tpu_torch.parallel.mesh import make_mesh
+    from dbat_tpu_torch.parallel.sharded import ShardedSchurOps
+
+    dev = _card()
+    s, spec = _small_net()
+    ops = ShardedSchurOps(s, spec, mesh=make_mesh(["cuda:0"] * 4),
+                          dtype=dtype)
+    fb = ops._fb_pair
+    rng = np.random.default_rng(8)
+    pads = 0
+    for sh in ops.shards:
+        plan = sh.pair_plan
+        assert int(plan.i1.max()) <= ops.S_obs
+        pads += int((plan.i1 == ops.S_obs).sum())  # outside Y
+        Y = torch.as_tensor(rng.normal(size=(ops.S_obs, fb.d_a)),
+                            dtype=dtype, device=dev)
+        got = plan(Y, fb)
+        assert torch.equal(got, plan(Y, fb))
+        ref = pair_bucket_acc_plain(Y.double(), plan.i1, plan.i2,
+                                    plan.row_ptr, fb.table(dev), fb.d_out,
+                                    fb.g, plan.cap)
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   ref.cpu().numpy(), rtol=0,
+                                   atol=tol_b * max(1.0, ref.abs().max()
+                                                    .item()))
+    assert pads > 0
