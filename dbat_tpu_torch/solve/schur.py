@@ -25,8 +25,12 @@ parallel/obs_mesh.py ObsMeshSchurOps) each shard's slice of the
 observations; `_obs_sum` adds a step's per-image or per-point sums
 over the sets.
 
-Deferred (same numbers through this general path): the packed-R plan
-for uniform ray counts and the `_img_block6` windowed scatter.
+The JAX package has two more plans on one device: the packed per-point
+fill-in for uniform ray counts (`_packed_R`, kernel A on each point's
+packed Y rows, then a SegSum over camera pairs) and the `_img_block6`
+windowed scatter for fixed IO.  This port takes the general path on
+every network: it gives the same numbers, and on the H100 the packed
+fill-in is the slower one (ROADMAP.md §2, follow-up 6).
 """
 
 from __future__ import annotations
